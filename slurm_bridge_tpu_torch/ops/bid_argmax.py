@@ -13,24 +13,29 @@ memory: on a CUDA tensor it launches the hand-written Hopper kernel
 the same computation tile by tile in PyTorch ops. There is no fallback
 between the two — a CUDA call launches the kernel or raises.
 
+A ``live`` mask says which rows the caller still needs; the others return
+the sentinel. The auction passes ``assign < 0``: placed rows' answers were
+thrown away anyway.
+
 Source note:
 
 - Replaces the Pallas TPU kernel ``slurm_bridge_tpu/ops/bid_argmax.py:_kernel``
   (wrapper ``bid_argmax``), with the same inputs, outputs, sentinel
   (``choice == num_nodes`` where nothing is feasible), lowest-index tie
   rule and global ``p_base``/``n_base`` offsets.
-- What bounds it on the card: integer and f32 ALU issue, not memory. The
-  operands are O((P+N)·R) words; each of the P·N cells costs
-  :data:`OPS_PER_CELL` ALU operations once the per-row and per-salt hash
-  terms are hoisted (counted from the kernel's cell loop: hash 11,
-  jitter 3, feasibility 13, running argmax 3). At the 57,635 × 10,000
-  headline round that is 576 M cells.
-- What the design does about it: one thread per pod row with its
-  operands in registers, node tiles staged once per block in shared memory
-  and read as broadcasts, the row and node hash terms hoisted out of the
-  cell loop. One thread per row leaves most of the card's resident-thread
-  capacity unused at the headline shape — the known limit, left for a
-  later change.
+- What bounds it on the card: integer issue on the cells the inputs need,
+  not memory. The operands are O((P+N)·R) words; each needed cell costs
+  the operations of :data:`CELL_OPS` (counted from the kernel's cell
+  loop). A cell is needed when its row is live and the node lies in the
+  row's partition (every node, for a row of any partition).
+- What the design does about it: :func:`work_list` compacts the live rows
+  (sorted by partition) on the device; each tile of :data:`TILE_ROWS` of
+  them walks only the range of the partition-ordered node list
+  (:func:`node_order`) its rows can take (:func:`tile_ranges`); a block
+  scores one (row tile, 64-node chunk) work item, so the work
+  spreads over the whole card, and each thread scores every staged node
+  against the rows it holds in registers. Chunks merge through an
+  order-independent 64-bit ``atomicMax``. Details in the source.
 - No single PyTorch call computes this function, so the kernel has no
   library yardstick.
 
@@ -49,6 +54,7 @@ import shutil
 import subprocess
 import threading
 
+import numpy as np
 import torch
 
 from slurm_bridge_tpu_torch import BUILD_DIR
@@ -59,19 +65,30 @@ from slurm_bridge_tpu_torch import BUILD_DIR
 BP = 512
 BN = 2048
 
-#: Launches of the CUDA kernel since the count was last zeroed. Only the
-#: wrapper's launch adds to it; plain-version calls do not.
+#: Launches of the CUDA kernel (the scoring kernel, one per wrapper call)
+#: since the count was last zeroed; plain-version calls do not add to it.
 LAUNCHES = 0
+#: Launches of the kernel's four helpers (the work list's count and compact
+#: passes, node packing, per-row finish).
+AUX_LAUNCHES = 0
 
-#: ALU operations per (shard, node) cell in the kernel's cell loop, after
-#: hoisting: the hash's xor with the row term, three xor-shifts (2 each)
-#: and two multiplies (11); jitter: convert, scale, times jitter, minus
-#: price (3 after the exact scale); feasibility: partition compare, any-
-#: partition test and or (3), feature and+compare (2), three capacity
-#: compares and their ands (5), the node index and the incumbent test (3);
-#: the running argmax: and, compare, select (3). ``affinity_weight == 0``
-#: (the default) skips the affinity term.
-OPS_PER_CELL = 11 + 3 + 13 + 3
+#: Rows per work item — ``kTileRows`` of ``csrc/bid_argmax.cu`` (the C
+#: entry point refuses another) — and rows of the row order per work-list
+#: block (``kSlice``).
+TILE_ROWS = 512
+LIST_SLICE = 1024
+
+#: Instructions per needed (shard, node) cell in the kernel's cell loop at
+#: ``affinity_weight == 0``, by the pipe that issues them, counted from its
+#: SASS (``cuobjdump -sass`` of the ``sm_90a`` build): one staged node
+#: scored against a thread's four rows is 132 instructions — integer
+#: (LOP3 32, IMAD 22, SHF 16, ISETP 5, PLOP3 4, VIADD 3), f32 (FSETP 21,
+#: FMUL 8, FADD 4), conversion (I2FP 4), shared loads (LDS.128 3, one of
+#: them the affinity record's, predicated off) and branch and uniform
+#: bookkeeping (10).
+CELL_OPS = dict(int=82 / 4, f32=33 / 4, cvt=4 / 4, lds=2 / 4)
+#: Arithmetic operations per needed cell (for the roofline bound).
+OPS_PER_CELL = CELL_OPS["int"] + CELL_OPS["f32"] + CELL_OPS["cvt"]
 
 _SRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "bid_argmax.cu"
 _LIB = BUILD_DIR / "libsbt_bid_argmax.so"
@@ -127,18 +144,30 @@ def build(force: bool = False) -> str:
 
 
 def _kernel():
-    """The bound C entry point, built at first use."""
+    """The bound C library, built at first use."""
     global _fn
     if _fn is None:
         build()
-        fn = ctypes.CDLL(str(_LIB)).sbt_bid_argmax
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        lib = ctypes.CDLL(str(_LIB))
+        lib.sbt_bid_argmax.restype = ctypes.c_int
+        lib.sbt_bid_argmax.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        _fn = fn
+        ] + [ctypes.c_void_p] * 6
+        lib.sbt_work_list.restype = ctypes.c_int
+        lib.sbt_work_list.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
+            ctypes.c_void_p
+        ] * 4
+        _fn = lib
     return _fn
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc == -1:
+        raise RuntimeError(f"{what}: {_LIB.name} was built for another tile size")
+    if rc == -2:
+        raise ValueError(f"{what}: the node axis needs more chunks than a grid holds")
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
 #: operand name → (dtype, trailing shape); node_feat/req_feat are uint32
@@ -178,10 +207,116 @@ def _check(ops: dict[str, torch.Tensor]) -> tuple[int, int, torch.device]:
     return p, n, device
 
 
+def node_order(partition_of, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The nodes grouped by partition, ascending node index within one, and
+    the offsets of each partition's run: partition ``q`` holds
+    ``order[offsets[q]:offsets[q + 1]]``. Nodes of a negative partition
+    come first (only rows of any partition take them). Built on the host
+    from ``partition_of`` ([N] ints, numpy or a tensor); the partition codes
+    are dense (the encoder's 0..K-1). Returns (order [N] i32, offsets
+    [K+1] i32) on ``device``."""
+    if isinstance(partition_of, torch.Tensor):
+        partition_of = partition_of.cpu().numpy()
+    part = np.asarray(partition_of, dtype=np.int64)
+    order = np.argsort(part, kind="stable")
+    k = int(part.max()) + 1 if part.size and part.max() >= 0 else 0
+    if k > 2 * part.size + 1024:
+        raise ValueError(f"node_order: partition code {k - 1} is not dense")
+    offsets = np.searchsorted(part[order], np.arange(k + 1), side="left")
+    return (
+        torch.from_numpy(order.astype(np.int32)).to(device),
+        torch.from_numpy(offsets.astype(np.int32)).to(device),
+    )
+
+
+def row_order(job_part: torch.Tensor) -> torch.Tensor:
+    """The row ids [P] i32 stably sorted by partition (rows of any
+    partition, ``job_part < 0``, first), on the rows' device without a
+    host sync."""
+    return torch.sort(job_part, stable=True).indices.to(torch.int32)
+
+
+def work_list(live: torch.Tensor | None, order: torch.Tensor):
+    """The live rows compacted in ``order`` (:func:`row_order`) and their
+    count, without a host sync (see :func:`work_list_plain`). On a CUDA
+    tensor two short kernels build it; on a CPU tensor the plain version
+    does."""
+    global AUX_LAUNCHES
+    if order.device.type != "cuda":
+        return work_list_plain(live, order)
+    p = order.shape[0]
+    device = order.device
+    rows = torch.empty(p, dtype=torch.int32, device=device)
+    count = (torch.empty if p else torch.zeros)(1, dtype=torch.int32, device=device)
+    slice_counts = torch.empty(max(1, -(-p // LIST_SLICE)), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = _kernel().sbt_work_list(
+            0 if live is None else live.data_ptr(), order.data_ptr(), p,
+            slice_counts.data_ptr(), rows.data_ptr(), count.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(rc, "bid_argmax work list")
+    AUX_LAUNCHES += 2
+    return rows, count
+
+
+def work_list_plain(live: torch.Tensor | None, order: torch.Tensor):
+    """The plain version of the kernel's work list, in PyTorch ops without
+    a host sync: the live rows in ``order`` compacted to the front (−1
+    after them) and their count as a [1] i32 tensor the host never reads.
+    ``live`` is [P] bool by row id; ``None`` means every row."""
+    p = order.shape[0]
+    device = order.device
+    if live is None:
+        live_s = torch.ones(p, dtype=torch.bool, device=device)
+    else:
+        live_s = live[order.long()]
+    pos = torch.cumsum(live_s, 0, dtype=torch.int32)  # inclusive
+    dest = torch.where(live_s, pos - 1, p).long()  # dead rows to a spare slot
+    rows = torch.full((p + 1,), -1, dtype=torch.int32, device=device)
+    rows.scatter_(0, dest, order)
+    return rows[:p], pos[-1:]
+
+
+def tile_ranges(
+    rows: torch.Tensor, count: torch.Tensor, job_part: torch.Tensor,
+    offsets: torch.Tensor, num_nodes: int, tile_rows: int = TILE_ROWS,
+):
+    """For each tile of ``tile_rows`` rows of the work list, the range
+    ``[lo, hi)`` of the :func:`node_order` list it walks — what each block
+    of the kernel computes for itself.
+
+    The range runs from the tile's first live row's partition to its last's
+    (rows are sorted, so it covers every partition in between); it is the
+    whole list if the tile holds a row of any partition, empty for a
+    partition without nodes or a code past the offsets, and (0, 0) for a
+    tile past the live count. Rows of another partition inside a
+    straddling tile fail the kernel's partition test, as they would on any
+    node. Returns (lo, hi), [tiles] i32 each."""
+    p = rows.shape[0]
+    device = rows.device
+    tiles = -(-p // tile_rows)
+    first = torch.arange(tiles, device=device) * tile_rows
+    last = (torch.minimum(first + tile_rows, count) - 1).clamp_min(0)
+    part = torch.where(rows >= 0, job_part[rows.clamp_min(0).long()], 0).long()
+    pf, pl = part[first], part[last]
+    k = offsets.shape[0] - 1
+    lo = offsets[pf.clamp(0, k)]
+    hi = offsets[(pl + 1).clamp(0, k)]
+    wild = pf < 0
+    lo = torch.where(wild, 0, lo)
+    hi = torch.where(wild, num_nodes, hi)
+    has = first < count
+    return torch.where(has, lo, 0).to(torch.int32), torch.where(has, hi, 0).to(torch.int32)
+
+
 def bid_argmax(
     free, node_part, node_feat, price, dem, job_part, req_feat, incumbent,
     dem_n, free_n, salt: int, p_base: int = 0, n_base: int = 0,
     *, jitter: float, affinity_weight: float, num_nodes: int,
+    live: torch.Tensor | None = None,
+    nodes: tuple[torch.Tensor, torch.Tensor] | None = None,
+    rows: torch.Tensor | None = None,
 ):
     """Best feasible (value, node) per shard. Returns (best [P] f32,
     choice [P] i32) with ``choice == num_nodes`` where nothing is feasible.
@@ -191,40 +326,68 @@ def bid_argmax(
     f32, ``job_part``/``incumbent`` [P] i32, ``req_feat`` [P] (uint32 bits
     in i32); all contiguous and on one device. ``p_base``/``n_base`` are
     the global offsets of this block (hash and returned node ids are
-    global). CPU tensors run :func:`bid_argmax_plain`; CUDA tensors launch
-    the kernel.
+    global). ``live`` ([P] bool, ``None`` = every row) marks the rows to
+    score; the others return (−inf, ``num_nodes``). CPU tensors run
+    :func:`bid_argmax_plain`; CUDA tensors launch the kernel.
+
+    ``nodes`` (:func:`node_order` of ``node_part``) and ``rows``
+    (:func:`row_order` of ``job_part``) only change with the inventory and
+    the queue: a caller that calls once per round builds them once. Left
+    out, they are built here, and ``nodes`` then reads ``node_part`` on
+    the host.
     """
-    global LAUNCHES
+    global LAUNCHES, AUX_LAUNCHES
     ops = dict(
         free=free, node_part=node_part, node_feat=node_feat, price=price,
         free_n=free_n, dem=dem, job_part=job_part, req_feat=req_feat,
         incumbent=incumbent, dem_n=dem_n,
     )
     p, n, device = _check(ops)
+    if live is not None and (
+        live.dtype != torch.bool or tuple(live.shape) != (p,) or live.device != device
+    ):
+        raise ValueError(f"bid_argmax: live must be bool [{p}] on {device}")
     if device.type == "cpu":
         return bid_argmax_plain(
             free, node_part, node_feat, price, dem, job_part, req_feat,
             incumbent, dem_n, free_n, salt, p_base, n_base,
             jitter=jitter, affinity_weight=affinity_weight, num_nodes=num_nodes,
+            live=live,
         )
     if device.type != "cuda":
         raise ValueError(f"bid_argmax: unsupported device {device}")
+    if p == 0 or n == 0:
+        return (
+            torch.full((p,), float("-inf"), dtype=torch.float32, device=device),
+            torch.full((p,), num_nodes, dtype=torch.int32, device=device),
+        )
+    if nodes is None:
+        nodes = node_order(node_part, device)
+    if rows is None:
+        rows = row_order(job_part)
+    rows_c, count = work_list(live, rows)
+    order, offsets = nodes
+    rec = torch.empty((n, 8), dtype=torch.int32, device=device)
+    rec_aff = torch.empty((n if affinity_weight else 1, 4), dtype=torch.int32, device=device)
+    keys = torch.empty(p, dtype=torch.int64, device=device)
     best = torch.empty(p, dtype=torch.float32, device=device)
     choice = torch.empty(p, dtype=torch.int32, device=device)
-    fn = _kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(
+        rc = _kernel().sbt_bid_argmax(
             free.data_ptr(), node_part.data_ptr(), node_feat.data_ptr(),
             price.data_ptr(), dem.data_ptr(), job_part.data_ptr(),
             req_feat.data_ptr(), incumbent.data_ptr(), dem_n.data_ptr(),
-            free_n.data_ptr(), p, n, _i32(salt), _i32(p_base), _i32(n_base),
+            free_n.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+            rows_c.data_ptr(), count.data_ptr(), offsets.shape[0] - 1,
+            p, n, TILE_ROWS, _i32(salt), _i32(p_base), _i32(n_base),
             float(jitter), float(affinity_weight), int(num_nodes),
+            rec.data_ptr(), rec_aff.data_ptr(), keys.data_ptr(),
             best.data_ptr(), choice.data_ptr(), stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"bid_argmax kernel launch failed: cudaError {rc}")
+    _raise_on(rc, "bid_argmax kernel")
     LAUNCHES += 1
+    AUX_LAUNCHES += 2
     return best, choice
 
 
@@ -269,13 +432,15 @@ def bid_argmax_plain(
     free, node_part, node_feat, price, dem, job_part, req_feat, incumbent,
     dem_n, free_n, salt: int, p_base: int = 0, n_base: int = 0,
     *, jitter: float, affinity_weight: float, num_nodes: int,
-    bp: int = BP, bn: int = BN,
+    live: torch.Tensor | None = None, bp: int = BP, bn: int = BN,
 ):
     """The plain PyTorch version of the kernel, on any device: the TPU
     kernel's tiling (``bp`` rows × ``bn`` nodes), padding (padded nodes
     advertise free −1 and partition −2), global offsets and running
     (max, argmax) with a strictly-greater update across node tiles — the
-    first maximal node wins, as in the kernel."""
+    first maximal node wins, as in the kernel. With ``live``, only the live
+    rows are scored (an index-select), each still over every node; the
+    others return (−inf, ``num_nodes``)."""
     p, n = dem.shape[0], free.shape[0]
     device = dem.device
     n_pad = (-n) % bn
@@ -288,14 +453,18 @@ def bid_argmax_plain(
     feat64 = node_feat.to(torch.int64) & _M32
     best = torch.full((p,), float("-inf"), dtype=torch.float32, device=device)
     choice = torch.full((p,), num_nodes, dtype=torch.int32, device=device)
-    for i in range(0, p, bp):
-        rows = slice(i, min(i + bp, p))
+    if live is None:
+        row_ids = torch.arange(p, device=device)
+    else:
+        row_ids = torch.nonzero(live).squeeze(1)
+    for i in range(0, row_ids.shape[0], bp):
+        rows = row_ids[i : i + bp]
         jp = job_part[rows, None]
         rf = req_feat[rows, None].to(torch.int64) & _M32
         d = dem[rows]
         dn = dem_n[rows]
         inc = incumbent[rows, None]
-        pi = (torch.arange(rows.start, rows.stop, device=device) + p_base) & _M32
+        pi = (rows + p_base) & _M32
         b_val = best[rows]
         b_idx = choice[rows]
         for j in range(0, n + n_pad, bn):

@@ -36,7 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from slurm_bridge_tpu_torch.ops.bid_argmax import bid_argmax, mix, unit
+from slurm_bridge_tpu_torch.ops.bid_argmax import bid_argmax, mix, node_order, row_order, unit
 from slurm_bridge_tpu_torch.solver.snapshot import ClusterSnapshot, JobBatch, Placement
 
 log = logging.getLogger("sbt.auction")
@@ -87,7 +87,7 @@ class AuctionConfig:
 
 def hash_jitter(
     p: int, n: int, salt: int, dtype=torch.float32, *, p_off: int = 0,
-    n_off: int = 0, device="cpu",
+    n_off: int = 0, device,
 ) -> torch.Tensor:
     """Deterministic pseudo-random [P, N] in [0, 1) from index hashing —
     a pure function of *global* indices (``p_off``/``n_off`` + local) and
@@ -387,6 +387,7 @@ def _auction_kernel(
     part_order,  # [M] i32 node indices grouped by partition (sampled mode)
     samp_start,  # [P] i32 shard's slice start into part_order (sampled mode)
     samp_count,  # [P] i32 shard's slice length (sampled mode; 0 = no nodes)
+    nodes=None,  # kernel path: node_order(node_part) — built here if None
     *,
     rounds: int,
     num_nodes: int,
@@ -405,7 +406,8 @@ def _auction_kernel(
     (assign [P] i32, free_after [N, R] f32) on that device.
 
     ``use_pallas`` sends score/choose through the hand-written kernel
-    (on CPU tensors, its plain version); ``candidates > 0`` takes the
+    (on CPU tensors, its plain version), which scores only the rows still
+    unplaced; ``candidates > 0`` takes the
     sampled branch; otherwise the dense branch runs. ``has_gangs=False``
     skips the dedup sort and the revoke sums."""
     p = dem.shape[0]
@@ -420,6 +422,12 @@ def _auction_kernel(
 
     assign = torch.full((p,), -1, dtype=torch.int32, device=dem.device)
     price = torch.zeros(n, dtype=torch.float32, device=dem.device)
+    if use_pallas and candidates == 0 and dem.device.type == "cuda":
+        # the kernel's work list: node and row orders are fixed for the solve
+        nodes = nodes if nodes is not None else node_order(node_part, dem.device)
+        rows = row_order(job_part)
+    else:
+        nodes = rows = None
     for rnd in range(rounds):
         # salvage phase: incomplete gangs release their capacity up front
         if has_gangs and rnd >= salvage_start:
@@ -436,12 +444,14 @@ def _auction_kernel(
                 check_feats=check_feats,
             )
         elif use_pallas:
-            # the hand-written kernel: no [P, N] intermediates anywhere
+            # the hand-written kernel: no [P, N] intermediates anywhere, and
+            # only the unplaced rows scored — the same rows `valid` keeps
             best, choice = bid_argmax(
                 free, node_part, node_feat, price,
                 dem, job_part, req_feat, incumbent,
                 dem * scale, free * scale, rnd,
                 jitter=jitter, affinity_weight=affinity_weight, num_nodes=n,
+                live=assign < 0, nodes=nodes, rows=rows,
             )
         else:
             choice, best = dense_score_choose(
@@ -728,6 +738,7 @@ def auction_place(
     else:  # unused by the full path — 1-element placeholders
         order = samp_start = samp_count = np.zeros(1, np.int32)
     q = stage_batch(batch, incumbent, dev)
+    nodes = node_order(snapshot.partition_of, dev) if use_kernel and dev.type == "cuda" else None
     assign, free_after = _auction_kernel(
         to_device(snapshot.free, np.float32, dev),
         to_device(snapshot.partition_of, np.int32, dev),
@@ -738,6 +749,7 @@ def auction_place(
         to_device(order, np.int32, dev),
         to_device(samp_start, np.int32, dev),
         to_device(samp_count, np.int32, dev),
+        nodes,
         rounds=cfg.rounds,
         num_nodes=snapshot.num_nodes,
         eta=cfg.eta,

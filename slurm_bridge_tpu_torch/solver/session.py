@@ -21,6 +21,7 @@ from slurm_bridge_tpu_torch.solver.auction import (
     AuctionConfig,
     CandidatePools,
     _auction_kernel,
+    node_order,
     batch_needs_feat_check,
     repair_unplaced,
     resolve_candidates,
@@ -135,6 +136,11 @@ class DeviceSolver:
             return  # pools + partition/feature tensors still valid
         self._dev_part = self._to_dev(snapshot.partition_of, np.int32)
         self._dev_feat = self._to_dev(snapshot.features, np.int32)
+        # the kernel's node order (nodes grouped by partition) and offsets
+        self._dev_nodes = (
+            node_order(snapshot.partition_of, self.device)
+            if self.device.type == "cuda" else None
+        )
         # candidate pools are built lazily on the first sampled solve (the
         # kernel path never pays for them) and re-staged only when a new
         # (partition, feature-bit) combo grows them
@@ -173,6 +179,7 @@ class DeviceSolver:
             dev_order,
             self._to_dev(samp_start, np.int32),
             self._to_dev(samp_count, np.int32),
+            self._dev_nodes,
             rounds=cfg.rounds,
             num_nodes=self.snapshot.num_nodes,
             eta=cfg.eta,

@@ -23,6 +23,16 @@ from slurm_bridge_tpu_torch.parallel import backend
 from slurm_bridge_tpu_torch.solver.convert import batch_from, config_from, snapshot_from
 from tests.test_solver import _check_feasible
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads: the suite runs in parallel workers, and torch
+    on every core in each starves the timing-sensitive tests beside it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 T = torch.from_numpy
 
 
@@ -41,7 +51,7 @@ def test_mix_bit_exact():
 )
 def test_hash_jitter_bit_exact(p_off, n_off, salt):
     want = np.asarray(ja.hash_jitter(37, 53, salt, jnp.float32, p_off=p_off, n_off=n_off))
-    got = ta.hash_jitter(37, 53, salt, p_off=p_off, n_off=n_off)
+    got = ta.hash_jitter(37, 53, salt, p_off=p_off, n_off=n_off, device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -206,6 +216,20 @@ def test_kernel_path_equals_dense_path():
     a = ta.auction_place(s, b, ta.AuctionConfig(rounds=6, use_pallas=False), device="cpu")
     k = ta.auction_place(s, b, ta.AuctionConfig(rounds=6, use_pallas=True), device="cpu")
     np.testing.assert_array_equal(a.node_of, k.node_of)
+
+
+@pytest.mark.parametrize("name", ["dense", "dense-gangfirst", "dense-nogang"])
+def test_kernel_path_equals_jax(name):
+    """The kernel path (on the CPU, the wrapper's plain version scoring
+    only the unplaced rows) places as the JAX package's dense solve."""
+    (n, j), kw, cfg = _SCENARIOS[name]
+    snap, batch = random_scenario(n, j, **kw)
+    a = ja.auction_place(snap, batch, ja.AuctionConfig(**cfg))
+    b = ta.auction_place(
+        snapshot_from(snap), batch_from(batch),
+        ta.AuctionConfig(**cfg, use_pallas=True, candidates=0), device="cpu",
+    )
+    np.testing.assert_array_equal(b.node_of, a.node_of)
 
 
 def test_auction_deterministic():

@@ -2,6 +2,8 @@
 (``device="cpu"``), plus equality with the JAX package's session."""
 
 import numpy as np
+import pytest
+import torch
 
 from slurm_bridge_tpu.solver.session import DeviceSolver as JDeviceSolver
 from slurm_bridge_tpu_torch.solver import AuctionConfig, auction_place
@@ -11,6 +13,16 @@ from slurm_bridge_tpu_torch.solver.snapshot import JobBatch, random_scenario
 from tests.test_solver import _check_feasible
 
 CFG = AuctionConfig(rounds=6)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads: the suite runs in parallel workers, and torch
+    on every core in each starves the timing-sensitive tests beside it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def test_matches_auction_place_and_jax():

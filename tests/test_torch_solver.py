@@ -6,6 +6,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 import slurm_bridge_tpu
 import slurm_bridge_tpu.solver as J
@@ -25,6 +26,16 @@ from slurm_bridge_tpu_torch.solver import (
 )
 from slurm_bridge_tpu_torch.solver.snapshot import JobBatch, random_inventory, random_scenario
 from tests.test_solver import _check_feasible, _pinned_case
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads: the suite runs in parallel workers, and torch
+    on every core in each starves the timing-sensitive tests beside it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _empty_batch():
