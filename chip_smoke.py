@@ -28,9 +28,24 @@ which fails the run:
    feasible, and be deterministic; its ``node_of`` digest must equal the
    JAX package's (:data:`HEADLINE_REFERENCE`); the dense plain path on the
    card must place identically;
-5. hold the card against the JAX package's result on a reduced scenario
+5. drive the bridge's placement tick at full width: the typed headline
+   inventory (``random_inventory``), its 50,000 jobs as unbound sizecar
+   pods in the port's ``ObjectStore``, one Ready virtual node per
+   partition, the inventory answered by an in-process client;
+   ``PlacementScheduler(backend="auction", inventory_ttl=0,
+   AuctionConfig(rounds=8, candidates=0)).tick()`` twice — each tick must
+   route ``"auction"``, launch the kernel exactly 8 times, and bind the
+   JAX package's pods with its tick digest (:data:`TICK_REFERENCE`); what
+   the kernel returned in each of those 16 calls is held bit-exact against
+   its plain version on that call's own operands (the scheduler's batch,
+   padded to 58,368 rows, and the round's live mask); then
+   a fresh store and scheduler at the product defaults (``backend="auto"``,
+   ``AuctionConfig(rounds=8)``) must route tick 1 to the card with the
+   same digest, its kernel calls timed with the gated CUDA events of
+   phase 3; prints each tick's phase times (store, encode, solve, bind);
+6. hold the card against the JAX package's result on a reduced scenario
    (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
-6. print times with the card's name and power limit.
+7. print times with the card's name and power limit.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` line; the last line is the run's JSON verdict.
@@ -38,8 +53,10 @@ The second-to-last lines are the kernels' JSON record and the
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -64,6 +81,13 @@ REFERENCE = dict(nodes=5000, jobs=25000, shards=28837, placed_jobs=22780,
 #: Every headline solve on the card must give this ``node_of``.
 HEADLINE_REFERENCE = dict(placed_jobs=45479, placed_shards=52307,
                           node_of_sha256="b6a4f8a8afea3192637cc0709c51544669a0e8be5195cdcf733ba7fca316ebcd")
+#: The JAX package's two ``PlacementScheduler`` ticks over the typed
+#: headline inventory on the CPU (pods bound, tick digest), from
+#: ``JAX_PLATFORMS=cpu python tools/port_reference.py --tick --nodes 10000 --jobs 50000``.
+TICK_REFERENCE = [
+    dict(placed=45777, tick_sha256="9e913c369ad1a6feb91985a4aca8cce906f678c60f0f9aeec489f338dee6e17f"),
+    dict(placed=3090, tick_sha256="917cd82528af955f68fc31cb4bbdce74b451af11ac1aa02bfb51bb261940eba6"),
+]
 
 #: Peak rates for the bound (NVIDIA H100 SXM data sheet): HBM bytes/s and
 #: float32 non-tensor-core operations/s. Counting every integer and float
@@ -139,6 +163,103 @@ def digest(node_of: np.ndarray) -> str:
     return hashlib.sha256(node_of.astype("<i4").tobytes()).hexdigest()
 
 
+def tick_digest(pods) -> str:
+    """sha256 over pods sorted by name of (name, bound node, placement
+    hint, reason) — what a tick decided for every pod. It reads only
+    fields both packages' pods have: ``tools/port_reference.py`` and the
+    tests digest the JAX package's store with it too."""
+    h = hashlib.sha256()
+    for p in sorted(pods, key=lambda p: p.meta.name):
+        h.update("\x1f".join((
+            p.meta.name, p.spec.node_name, ",".join(p.spec.placement_hint),
+            p.status.reason,
+        )).encode() + b"\n")
+    return h.hexdigest()
+
+
+class InventoryClient:
+    """The inventory and cancel RPCs of a tick, answered in process in
+    ``pb``'s messages the way the simulator's in-process agent answers
+    them: the same ``PartitionResponse`` object per partition, ``Nodes``
+    in request order with the inventory's version, and ``unchanged=True``
+    when the caller's cursor matches. ``pb`` and ``convert`` are a
+    package's ``wire.pb`` and ``wire.convert``: the port's here, the JAX
+    package's in ``tools/port_reference.py`` and the tests."""
+
+    def __init__(self, pb, convert, partitions, nodes):
+        self.pb, self.convert = pb, convert
+        self.partitions = {p.name: p for p in partitions}
+        self.nodes = {n.name: n for n in nodes}
+        self.version = 1
+        self.cancelled = []
+        self._part_protos = {}
+        self._node_protos = {}
+
+    def Partitions(self, request, timeout=None):
+        return self.pb.PartitionsResponse(partitions=list(self.partitions))
+
+    def Partition(self, request, timeout=None):
+        resp = self._part_protos.get(request.partition)
+        if resp is None:
+            resp = self.convert.partition_to_proto(self.partitions[request.partition])
+            self._part_protos[request.partition] = resp
+        return resp
+
+    def _node_proto(self, name):
+        msg = self._node_protos.get(name)
+        if msg is None:
+            msg = self._node_protos[name] = self.convert.node_to_proto(self.nodes[name])
+        return msg
+
+    def Nodes(self, request, timeout=None):
+        if request.since_version and request.since_version == self.version:
+            return self.pb.NodesResponse(version=self.version, unchanged=True)
+        return self.pb.NodesResponse(
+            nodes=[self._node_proto(n) for n in request.names if n in self.nodes],
+            version=self.version,
+        )
+
+    def CancelJob(self, request, timeout=None):
+        self.cancelled.append(int(request.job_id))
+        return self.pb.CancelJobResponse()
+
+    def replace_node(self, node) -> None:
+        """A changed node: the next ``Nodes`` call serves it, under a new
+        version."""
+        self.nodes[node.name] = node
+        self._node_protos.pop(node.name, None)
+        self.version += 1
+
+
+def tick_world(objects, store_cls, partitions, demands):
+    """A fresh ``store_cls`` holding every job as an unbound sizecar pod
+    ``pod000000``… and one Ready virtual node per partition, built from
+    ``objects`` (a package's ``bridge.objects``)."""
+    o = objects
+    store = store_cls()
+    store.create_batch([
+        o.Pod(meta=o.Meta(name=f"pod{j:06d}"),
+              spec=o.PodSpec(role=o.PodRole.SIZECAR, partition=d.partition, demand=d))
+        for j, d in enumerate(demands)
+    ])
+    for p in partitions:
+        store.create(o.VirtualNode(meta=o.Meta(name=o.partition_node_name(p.name)),
+                                   partition=p.name, conditions=[o.NodeCondition()]))
+    return store
+
+
+def port_tick_world(partitions, nodes, demands):
+    """The port's side of a tick over ``random_inventory``'s lists: its
+    :class:`InventoryClient`, and a function that builds a fresh
+    :func:`tick_world` store."""
+    import slurm_bridge_tpu_torch.bridge.objects as objects
+    from slurm_bridge_tpu_torch.bridge.store import ObjectStore
+    from slurm_bridge_tpu_torch.wire import convert, pb
+
+    client = InventoryClient(pb, convert, partitions, nodes)
+    return client, lambda: tick_world(objects, ObjectStore, partitions, demands)
+
+
 def check_feasible(snap, batch, pl) -> None:
     """Capacity, partition, features, gang all-or-nothing and distinct
     nodes within a gang."""
@@ -197,11 +318,13 @@ def small_operands(seed, n, p, device):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
-def compare(kern, args, salt, aw, n, label, live=None, **plain_kw):
+def compare(kern, args, salt, aw, n, label, live=None, got=None, jitter=1.0, **plain_kw):
     """Kernel vs plain on the same operands; returns the max |Δ| over
-    finite values. Bit-exact at aw=0; the stated tolerance at aw≠0."""
-    kw = dict(jitter=1.0, affinity_weight=aw, num_nodes=n, live=live)
-    bv, bi = kern.bid_argmax(*args, salt, **kw)
+    finite values. Bit-exact at aw=0; the stated tolerance at aw≠0.
+    ``got`` is the kernel's (values, choices) from a launch already made
+    on these operands; without it the kernel is launched here."""
+    kw = dict(jitter=jitter, affinity_weight=aw, num_nodes=n, live=live)
+    bv, bi = got if got is not None else kern.bid_argmax(*args, salt, **kw)
     torch.cuda.synchronize()
     pv, pi = kern.bid_argmax_plain(*args, salt, **kw, **plain_kw)
     same_idx = (bi == pi).float().mean().item()
@@ -260,38 +383,149 @@ def sm_clock_mhz(busy) -> float:
     return max(vals)
 
 
-def instrumented_solve(snap, batch):
-    """One headline ``DeviceSolver.solve`` with CUDA events around each
-    call of the kernel's wrapper (behind a short gate, so they time the
-    device's work: the wrapper's work list, node packing, scoring and
-    finish), keeping each round's operands and live mask. Returns
-    (placement, rounds)."""
+@contextlib.contextmanager
+def kernel_events(keep_operands: bool, timed: bool = True):
+    """Within the block, one record per call of the kernel's wrapper by
+    the auction. ``timed``: CUDA events around each call (behind a short
+    gate, so they time the device's work: the wrapper's work list, node
+    packing, scoring and finish), read into the record's ``ms`` once the
+    block ends. ``keep_operands``: each call's operands, live mask and
+    keywords, and a copy of what the kernel returned (``out``)."""
     import slurm_bridge_tpu_torch.solver.auction as auction_mod
-    from slurm_bridge_tpu_torch.solver import AuctionConfig, DeviceSolver
 
     real = auction_mod.bid_argmax
-    rounds = []
+    calls = []
 
     def recorder(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(GATE_CYCLES // 10)  # the gate of cuda_ms: device time only
-        start.record()
+        rec = {}
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(GATE_CYCLES // 10)  # the gate of cuda_ms: device time only
+            start.record()
         out = real(*args, **kw)
-        stop.record()
-        rounds.append(dict(args=[a.clone() for a in args[:10]], salt=args[10],
-                           live=kw["live"].clone(), kw=kw, events=(start, stop)))
+        if timed:
+            stop.record()
+            rec["events"] = (start, stop)
+        if keep_operands:
+            rec.update(args=[a.clone() for a in args[:10]], salt=args[10],
+                       live=kw["live"].clone(), kw=kw, out=tuple(t.clone() for t in out))
+        calls.append(rec)
         return out
 
     auction_mod.bid_argmax = recorder
     try:
-        pl = DeviceSolver(snap, AuctionConfig(rounds=ROUNDS)).solve(batch)
+        yield calls
     finally:
         auction_mod.bid_argmax = real
     torch.cuda.synchronize()
-    for r in rounds:
-        r["ms"] = r["events"][0].elapsed_time(r["events"][1])
+    for r in calls:
+        if timed:
+            r["ms"] = r["events"][0].elapsed_time(r["events"][1])
+
+
+def compare_recorded(kern, r, label) -> float:
+    """What the kernel returned in a recorded call (:func:`kernel_events`)
+    against its plain version on that call's own operands, live mask and
+    keywords."""
+    kw = r["kw"]
+    return compare(kern, r["args"], r["salt"], kw["affinity_weight"], kw["num_nodes"], label,
+                   live=r["live"], got=r["out"], jitter=kw["jitter"], bp=4096, bn=2048)
+
+
+def instrumented_solve(snap, batch):
+    """One headline ``DeviceSolver.solve`` under :func:`kernel_events`,
+    keeping each round's operands and live mask. Returns (placement,
+    rounds)."""
+    from slurm_bridge_tpu_torch.solver import AuctionConfig, DeviceSolver
+
+    with kernel_events(keep_operands=True) as rounds:
+        pl = DeviceSolver(snap, AuctionConfig(rounds=ROUNDS)).solve(batch)
     return pl, rounds
+
+
+def tick_phase(kern, smi: str) -> dict:
+    """Phase 5: the bridge's placement tick at full width (module
+    docstring). Returns what the kernels line and the summary print."""
+    from slurm_bridge_tpu_torch.bridge.objects import Pod
+    from slurm_bridge_tpu_torch.bridge.scheduler import PlacementScheduler
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+    from slurm_bridge_tpu_torch.solver.snapshot import PAD_PARTITION, random_inventory
+
+    logging.getLogger("sbt").setLevel(logging.ERROR)  # 50k PlacementFailed lines
+    partitions, nodes, demands = random_inventory(
+        HEADLINE["num_nodes"], HEADLINE["num_jobs"], seed=HEADLINE["seed"],
+        load=HEADLINE["load"], gpu_fraction=HEADLINE["gpu_fraction"],
+        gang_fraction=HEADLINE["gang_fraction"],
+    )
+    client, make_store = port_tick_world(partitions, nodes, demands)
+
+    def fresh_store():
+        t0 = time.perf_counter()
+        store = make_store()
+        log(f"  store loaded: {len(demands)} pending sizecar pods, {len(partitions)} Ready "
+            f"virtual nodes, {len(nodes)} nodes in {time.perf_counter() - t0:.2f} s")
+        return store
+
+    def run_tick(sched, store, label):
+        before = kern.LAUNCHES
+        t0 = time.perf_counter()
+        placed = sched.tick()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = kern.LAUNCHES - before
+        got = tick_digest(store.list(Pod.KIND))
+        phases = ", ".join(f"{k} {v:.1f}" for k, v in sched.last_phase_ms.items())
+        log(f"  {label}: route {sched.last_route}, bound {placed}, kernel launches {launches}, "
+            f"digest {got[:16]}…; wall {wall_ms:.1f} ms ({phases} ms) [{smi}]")
+        return dict(placed=placed, route=sched.last_route, launches=launches, digest=got,
+                    wall_ms=wall_ms, phase_ms=dict(sched.last_phase_ms))
+
+    # two headline ticks, held to the JAX package's; each kernel call's
+    # operands and result kept (untimed) for the check against plain below
+    store = fresh_store()
+    sched = PlacementScheduler(store, client, backend="auction", inventory_ttl=0,
+                               auction_config=AuctionConfig(rounds=ROUNDS, candidates=0))
+    ticks = []
+    for i, want in enumerate(TICK_REFERENCE):
+        with kernel_events(keep_operands=True, timed=False) as calls:
+            t = run_tick(sched, store, f"tick {i + 1}")
+        t["calls"] = calls
+        require(t["route"] == "auction", f"tick {i + 1} routed {t['route']}")
+        require(t["launches"] == ROUNDS and len(calls) == ROUNDS,
+                f"tick {i + 1}: {t['launches']} kernel launches")
+        require(t["placed"] == want["placed"],
+                f"tick {i + 1} bound {t['placed']}, the JAX package {want['placed']}")
+        require(t["digest"] == want["tick_sha256"],
+                f"tick {i + 1} digest {t['digest']} differs from the JAX package's")
+        ticks.append(t)
+
+    # every kernel call of both ticks against its plain version, on the
+    # tick's own operands: the scheduler's padded batch (pad rows of
+    # PAD_PARTITION stay live every round) and each round's live mask
+    errs = []
+    for i, t in enumerate(ticks):
+        for j, r in enumerate(t.pop("calls")):
+            p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
+            errs.append(compare_recorded(kern, r, f"tick {i + 1} round {j} ({n},{p})"))
+            log(f"    live rows {int(r['live'].sum())} of {p}, "
+                f"pad rows {int((r['args'][5] == int(PAD_PARTITION)).sum())}")
+
+    # the product defaults: auto routing and AuctionConfig(rounds=8), the
+    # kernel's calls timed
+    store = fresh_store()
+    sched = PlacementScheduler(store, client, inventory_ttl=0,
+                               auction_config=AuctionConfig(rounds=ROUNDS))
+    with kernel_events(keep_operands=False) as calls:
+        auto = run_tick(sched, store, "tick 1, backend auto (kernel timed, gates in the wall time)")
+    require(auto["route"] == "auction", f"auto routed the headline tick to {auto['route']}")
+    require(auto["launches"] == ROUNDS and len(calls) == ROUNDS, auto["launches"])
+    require(auto["digest"] == TICK_REFERENCE[0]["tick_sha256"],
+            "the auto-routed tick's digest differs from the JAX package's")
+    auto["kernel_ms"] = sum(c["ms"] for c in calls)
+    log(f"  tick digests and bound counts equal the JAX package's; the auto-routed tick's "
+        f"kernel time {auto['kernel_ms']:.4f} ms over {len(calls)} calls, of its solve phase "
+        f"{auto['phase_ms']['solve']:.1f} ms [{smi}]")
+    return dict(ticks=ticks, auto=auto, errs=errs)
 
 
 def main() -> int:
@@ -455,7 +689,15 @@ def main() -> int:
     np.testing.assert_array_equal(dense.node_of, headline.node_of)
     log("  dense plain path on the card places identically")
 
-    # 5. the JAX package's result on the reduced scenario
+    # 5. the bridge's placement tick at full width
+    log("[5] main path: PlacementScheduler ticks on the headline inventory")
+    kern.LAUNCHES = 0
+    tick = tick_phase(kern, smi)
+    tick_launches = kern.LAUNCHES
+    require(tick_launches == ROUNDS * 3, f"{tick_launches} kernel launches in the tick phase")
+    errs += tick["errs"]
+
+    # 6. the JAX package's result on the reduced scenario
     ref_snap, ref_batch = random_scenario(
         REFERENCE["nodes"], REFERENCE["jobs"], seed=42, load=0.7,
         gpu_fraction=0.15, gang_fraction=0.05,
@@ -466,16 +708,20 @@ def main() -> int:
     ref_jobs = len(ref_pl.by_job(ref_batch))
     rel = abs(ref_jobs - REFERENCE["placed_jobs"]) / REFERENCE["placed_jobs"]
     match = digest(ref_pl.node_of) == REFERENCE["node_of_sha256"]
-    log(f"[5] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
+    log(f"[6] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
         f"vs JAX {REFERENCE['placed_jobs']} (rel {rel:.5f}); node_of digest matches JAX: {match}")
     require(rel <= 0.005, rel)
 
-    # 6. times
+    # 7. times
     p50 = statistics.median(wall_ms)
-    log(f"[6] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
+    log(f"[7] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
         f"(min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); kernel {kernel_ms:.4f} ms/launch "
         f"(bound {bound_ms:.4f}, ceiling {ceiling_ms:.4f}), {ms_per_solve:.4f} ms per solve; "
         f"total run {time.perf_counter() - t_start:.0f} s")
+    for i, t in enumerate(tick["ticks"]):
+        log(f"[7] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in t["phase_ms"].items())
+            + f"; {t['launches']} kernel launches")
 
     print(json.dumps({"kernels": [{
         "name": "bid_argmax",
@@ -491,6 +737,8 @@ def main() -> int:
         "library_ms": None,
         "ms_per_solve": ms_per_solve,
         "ceiling_ms": ceiling_ms,
+        "launches_per_tick": [t["launches"] for t in tick["ticks"]],
+        "tick_kernel_ms": tick["auto"]["kernel_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -92,6 +92,22 @@ def incumbent_fraction(incumbent) -> float:
     return float((inc >= 0).mean())
 
 
+#: Below this many P×N cells a multi-device sweep can't amortise its
+#: collectives — the sharded auto-select floor (scheduler and sidecar
+#: share this one rule so the two deployment modes route identically).
+SHARDED_FLOOR_CELLS = 1 << 20
+
+
+def use_sharded(
+    num_shards: int,
+    num_nodes: int,
+    n_devices: int,
+    threshold: int = SHARDED_FLOOR_CELLS,
+) -> bool:
+    """Whether the device solve should run the multi-device sweep."""
+    return n_devices >= 2 and num_shards * num_nodes >= threshold
+
+
 def choose_path(
     num_shards: int,
     num_nodes: int,

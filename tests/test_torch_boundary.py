@@ -1,5 +1,6 @@
 """The port imports nothing of JAX and nothing of the JAX package."""
 
+import json
 import pathlib
 import subprocess
 import sys
@@ -37,6 +38,67 @@ def test_port_modules_import_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+#: the placement tick's modules (PR 3's slice): each must be importable
+#: from a fresh interpreter on its own
+TICK_MODULES = [
+    "slurm_bridge_tpu_torch.core.types",
+    "slurm_bridge_tpu_torch.core.fastpath",
+    "slurm_bridge_tpu_torch.obs.metrics",
+    "slurm_bridge_tpu_torch.obs.tracing",
+    "slurm_bridge_tpu_torch.obs.events",
+    "slurm_bridge_tpu_torch.obs.explain",
+    "slurm_bridge_tpu_torch.bridge",
+    "slurm_bridge_tpu_torch.bridge.freeze",
+    "slurm_bridge_tpu_torch.bridge.objects",
+    "slurm_bridge_tpu_torch.bridge.statusmap",
+    "slurm_bridge_tpu_torch.bridge.colstore",
+    "slurm_bridge_tpu_torch.bridge.columns",
+    "slurm_bridge_tpu_torch.bridge.store",
+    "slurm_bridge_tpu_torch.bridge.scheduler",
+    "slurm_bridge_tpu_torch.wire",
+    "slurm_bridge_tpu_torch.wire.messages",
+    "slurm_bridge_tpu_torch.wire.errors",
+    "slurm_bridge_tpu_torch.wire.convert",
+    "slurm_bridge_tpu_torch.policy",
+    "slurm_bridge_tpu_torch.policy.classes",
+    "slurm_bridge_tpu_torch.policy.fairshare",
+    "slurm_bridge_tpu_torch.policy.engine",
+    "slurm_bridge_tpu_torch.admission",
+    "slurm_bridge_tpu_torch.admission.residual",
+    "slurm_bridge_tpu_torch.admission.fastpath",
+]
+
+
+def _foreign_after_import(mod: str) -> list[str]:
+    """Modules of JAX, of the JAX package, of grpc or of protobuf in
+    ``sys.modules`` after a fresh interpreter imports ``mod``."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({mod!r})\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in\n"
+        "       ('jax', 'slurm_bridge_tpu', 'grpc')\n"
+        "       or k == 'google.protobuf' or k.startswith('google.protobuf.')]\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=_PKG.parent, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_tick_modules_are_ported():
+    assert set(TICK_MODULES) <= set(_port_modules())
+
+
+def test_scheduler_imports_no_grpc_or_protobuf():
+    """The tick path needs neither grpc nor protobuf (the card's machine
+    has neither), even where both are installed."""
+    assert _foreign_after_import("slurm_bridge_tpu_torch.bridge.scheduler") == []
+    assert _foreign_after_import("slurm_bridge_tpu_torch.bridge") == []
 
 
 def test_chip_smoke_imports_no_jax():

@@ -1,5 +1,5 @@
 """Card-only tests: the CUDA kernel against its plain version, and the
-solve on the card against the same solve on the CPU.
+solve and the placement tick on the card against the same on the CPU.
 
 They skip where no card is present (the check is made inside the fixture,
 so every worker collects the same tests). This file imports neither JAX
@@ -124,6 +124,74 @@ def test_solve_on_card_equals_cpu(cuda):
     np.testing.assert_array_equal(k1.node_of, k2.node_of)
     np.testing.assert_array_equal(k1.node_of, dense.node_of)
     np.testing.assert_array_equal(k1.node_of, cpu.node_of)
+
+
+@pytest.mark.cuda
+def test_tick_on_card_equals_cpu(cuda):
+    """Two PlacementScheduler ticks with the kernel on the card bind the
+    same pods, to the same nodes, with the same reasons and pressure
+    ledger, as the same ticks on the CPU; each fresh solve launches the
+    kernel once per round, and the CPU ticks launch it never."""
+    import chip_smoke
+    from slurm_bridge_tpu_torch.bridge import Pod, PlacementScheduler
+    from slurm_bridge_tpu_torch.solver.snapshot import random_inventory
+
+    partitions, nodes, demands = random_inventory(
+        400, 1600, seed=3, load=0.9, gpu_fraction=0.15, gang_fraction=0.1
+    )
+    client, make_store = chip_smoke.port_tick_world(partitions, nodes, demands)
+    runs = {}
+    for device in (None, "cpu"):
+        store = make_store()
+        sched = PlacementScheduler(
+            store, client, backend="auction", inventory_ttl=0,
+            auction_config=AuctionConfig(rounds=8, candidates=0), device=device,
+        )
+        before = kern.LAUNCHES
+        ticks = []
+        for _ in range(2):
+            placed = sched.tick()
+            ticks.append((placed, sched.last_route, sched.last_explain_ledger,
+                          chip_smoke.tick_digest(store.list(Pod.KIND))))
+        runs[device] = (ticks, kern.LAUNCHES - before, sched.solves_total)
+    card, cpu = runs[None], runs["cpu"]
+    assert card[0] == cpu[0]
+    assert card[0][0][0] > 0 and card[0][0][1] == "auction"
+    assert card[1] == 8 * card[2] and card[2] == 2
+    assert cpu[1] == 0
+
+
+@pytest.mark.cuda
+def test_tick_kernel_calls_equal_plain(cuda):
+    """What the kernel returns inside a tick — on the scheduler's padded
+    batch, whose pad rows (``PAD_PARTITION``) stay live every round, and
+    each round's live mask — equals its plain version on the same
+    operands, bit for bit."""
+    import chip_smoke
+    from slurm_bridge_tpu_torch.bridge import PlacementScheduler
+    from slurm_bridge_tpu_torch.solver.snapshot import PAD_PARTITION, random_inventory
+
+    partitions, nodes, demands = random_inventory(
+        400, 1600, seed=3, load=0.9, gpu_fraction=0.15, gang_fraction=0.1
+    )
+    client, make_store = chip_smoke.port_tick_world(partitions, nodes, demands)
+    sched = PlacementScheduler(
+        make_store(), client, backend="auction", inventory_ttl=0,
+        auction_config=AuctionConfig(rounds=8, candidates=0),
+    )
+    with chip_smoke.kernel_events(keep_operands=True, timed=False) as calls:
+        assert sched.tick() > 0
+    assert len(calls) == 8
+    for r in calls:
+        args, kw = r["args"], r["kw"]
+        assert (args[5][r["live"]] == int(PAD_PARTITION)).any()
+        pv, pi = kern.bid_argmax_plain(
+            *args, r["salt"], jitter=kw["jitter"], affinity_weight=kw["affinity_weight"],
+            num_nodes=kw["num_nodes"], live=r["live"],
+        )
+        bv, bi = r["out"]
+        assert torch.equal(bi, pi)
+        assert torch.equal(bv.view(torch.int32), pv.view(torch.int32))
 
 
 def _kernel_vs_plain(args, salt, n, *, p_base=0, n_base=0, aw=0.0, jitter=1.0, live=None):

@@ -1,4 +1,4 @@
-"""Where the time of one headline solve goes, on the card.
+"""Where the time of one headline solve, or one headline tick, goes on the card.
 
 Profiles ``DeviceSolver.solve`` of the 57,635 × 10,000 headline scenario
 (rounds=8, the ``bid_argmax`` kernel path) with ``torch.profiler`` after a
@@ -9,8 +9,12 @@ time of the ``bid_argmax`` kernels, the count of host synchronisations
 ``cudaDeviceSynchronize``) in the solve, and the operators that take the
 most host and device time. Needs a CUDA card.
 
-    python tools/port_profile.py [--rows 25] [--root DIR]
+    python tools/port_profile.py [--rows 25] [--root DIR] [--tick]
 
+``--tick`` profiles tick 1 of chip_smoke.py's tick phase instead: a
+``PlacementScheduler`` (``backend="auction"``, rounds=8) over the typed
+headline inventory with its 50,000 jobs pending in a fresh store, after a
+warm-up tick on another store; it also prints the tick's phase times.
 ``--root`` profiles the port package of another checkout (for example
 an unpacked earlier commit), so two trees compare in one call.
 """
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -31,29 +36,60 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 #: Host-side events that wait for the device.
 SYNC_EVENTS = ("aten::item", "aten::_local_scalar_dense", "cudaStreamSynchronize",
                "cudaDeviceSynchronize")
+HEADLINE = dict(seed=42, load=0.7, gpu_fraction=0.15, gang_fraction=0.05)
+
+
+def solve_work():
+    """(one headline solve of a warmed ``DeviceSolver``, extra record)."""
+    from slurm_bridge_tpu_torch.solver import AuctionConfig, DeviceSolver
+    from slurm_bridge_tpu_torch.solver.snapshot import random_scenario
+
+    snap, batch = random_scenario(10_000, 50_000, **HEADLINE)
+    solver = DeviceSolver(snap, AuctionConfig(rounds=8))
+    solver.solve(batch)  # warm-up: kernel build, allocator, first launches
+    return lambda: solver.solve(batch), dict
+
+
+def tick_work():
+    """(tick 1 of a fresh scheduler and store, its phase times), after a
+    warm-up tick on another store."""
+    import chip_smoke
+    from slurm_bridge_tpu_torch.bridge.scheduler import PlacementScheduler
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+    from slurm_bridge_tpu_torch.solver.snapshot import random_inventory
+
+    logging.getLogger("sbt").setLevel(logging.ERROR)  # 50k PlacementFailed lines
+    partitions, nodes, demands = random_inventory(10_000, 50_000, **HEADLINE)
+    client, make_store = chip_smoke.port_tick_world(partitions, nodes, demands)
+
+    def scheduler():
+        return PlacementScheduler(
+            make_store(), client, backend="auction",
+            inventory_ttl=0, auction_config=AuctionConfig(rounds=8, candidates=0),
+        )
+
+    scheduler().tick()
+    sched = scheduler()
+    return sched.tick, lambda: {"phase_ms": sched.last_phase_ms, "route": sched.last_route}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=25)
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--tick", action="store_true", help="profile one headline tick")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
-    from slurm_bridge_tpu_torch.solver import AuctionConfig, DeviceSolver
-    from slurm_bridge_tpu_torch.solver.snapshot import random_scenario
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    snap, batch = random_scenario(10_000, 50_000, seed=42, load=0.7,
-                                  gpu_fraction=0.15, gang_fraction=0.05)
-    solver = DeviceSolver(snap, AuctionConfig(rounds=8))
-    solver.solve(batch)  # warm-up: kernel build, allocator, first launches
+    work, extra = tick_work() if args.tick else solve_work()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.solve(batch)
+        work()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -66,13 +102,15 @@ def main() -> None:
     syncs = {e.key: e.count for e in events if e.key in SYNC_EVENTS}
     print(f"card: {smi}; package: {os.path.abspath(args.root)}")
     print(json.dumps({
-        "solve_wall_ms": wall_ms,
+        "work": "tick" if args.tick else "solve",
+        "wall_ms": wall_ms,
         "device_busy_ms": device_ms,
         "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
         "bid_argmax_device_ms": kernel_ms,
         "bid_argmax_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in events
                                   if "bid_argmax" in e.key and e.device_type == DeviceType.CUDA},
         "sync_events": syncs,
+        **extra(),
     }))
     print(events.table(sort_by="self_cpu_time_total", row_limit=args.rows))
     sort_dev = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"

@@ -1,12 +1,24 @@
 """Reference numbers for the PyTorch port's on-card check (chip_smoke.py).
 
-Runs the JAX package's auction on the CPU — dense full argmax
+Default: runs the JAX package's auction on the CPU — dense full argmax
 (``candidates=0``, ``use_pallas=False``), ``rounds=8`` — on one
 ``random_scenario`` and prints the placed-jobs count and the sha256 of
-``node_of`` (little-endian int32). chip_smoke.py holds the port's solve on
-the card to these numbers.
+``node_of`` (little-endian int32).
+
+``--tick``: runs the JAX package's ``PlacementScheduler`` twice over the
+typed headline inventory (``random_inventory``): every job a pending
+sizecar pod ``pod000000``… in the columnar ``ObjectStore``, one Ready
+virtual node per partition (chip_smoke.py's ``tick_world``), the
+inventory served by chip_smoke.py's ``InventoryClient`` in the JAX
+package's messages, ``backend="auction"``, ``inventory_ttl=0`` and the same
+dense config. It prints each tick's pods bound, route and tick digest
+(chip_smoke.py's ``tick_digest``, the function the port's ticks are
+digested with).
+
+chip_smoke.py holds the port's solve and tick on the card to these numbers.
 
     JAX_PLATFORMS=cpu python tools/port_reference.py --nodes 2000 --jobs 10000
+    JAX_PLATFORMS=cpu python tools/port_reference.py --tick --nodes 10000 --jobs 50000
 """
 
 from __future__ import annotations
@@ -14,6 +26,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import logging
 import os
 import resource
 import sys
@@ -22,8 +35,45 @@ import time
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from chip_smoke import InventoryClient, tick_digest, tick_world  # noqa: E402
 from slurm_bridge_tpu.solver.auction import AuctionConfig, auction_place  # noqa: E402
 from slurm_bridge_tpu.solver.snapshot import random_scenario  # noqa: E402
+
+#: the scenario's shape beyond node and job counts
+SCENARIO = dict(load=0.7, gpu_fraction=0.15, gang_fraction=0.05)
+
+
+def run_ticks(num_nodes: int, num_jobs: int, seed: int, ticks: int = 2) -> dict:
+    import slurm_bridge_tpu.bridge.objects as objects
+    from slurm_bridge_tpu.bridge.objects import Pod
+    from slurm_bridge_tpu.bridge.scheduler import PlacementScheduler
+    from slurm_bridge_tpu.bridge.store import ObjectStore
+    from slurm_bridge_tpu.solver.snapshot import random_inventory
+    from slurm_bridge_tpu.wire import convert, pb
+
+    logging.getLogger("sbt").setLevel(logging.ERROR)
+    partitions, nodes, demands = random_inventory(num_nodes, num_jobs, seed=seed, **SCENARIO)
+    t0 = time.perf_counter()
+    store = tick_world(objects, ObjectStore, partitions, demands)
+    load_s = time.perf_counter() - t0
+    sched = PlacementScheduler(
+        store, InventoryClient(pb, convert, partitions, nodes), backend="auction",
+        inventory_ttl=0,
+        auction_config=AuctionConfig(rounds=8, candidates=0, use_pallas=False),
+    )
+    out = []
+    for _ in range(ticks):
+        t0 = time.perf_counter()
+        placed = sched.tick()
+        wall = time.perf_counter() - t0
+        out.append({
+            "placed": placed,
+            "route": sched.last_route,
+            "tick_sha256": tick_digest(store.list(Pod.KIND)),
+            "cpu_seconds_wall": round(wall, 3),
+            "phase_ms": {k: round(v, 1) for k, v in sched.last_phase_ms.items()},
+        })
+    return {"load_seconds": round(load_s, 3), "ticks": out}
 
 
 def main() -> None:
@@ -31,20 +81,27 @@ def main() -> None:
     ap.add_argument("--nodes", type=int, default=2000)
     ap.add_argument("--jobs", type=int, default=10000)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--tick", action="store_true",
+                    help="run two PlacementScheduler ticks over the typed inventory")
     args = ap.parse_args()
-    snap, batch = random_scenario(
-        args.nodes, args.jobs, seed=args.seed, load=0.7,
-        gpu_fraction=0.15, gang_fraction=0.05,
-    )
+    scenario = {"nodes": args.nodes, "jobs": args.jobs, "seed": args.seed, **SCENARIO}
+    config = "AuctionConfig(rounds=8, candidates=0, use_pallas=False)"
+    if args.tick:
+        res = run_ticks(args.nodes, args.jobs, args.seed)
+        print(json.dumps({
+            "scenario": scenario, "config": config, **res,
+            "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
+        }))
+        return
+    snap, batch = random_scenario(args.nodes, args.jobs, seed=args.seed, **SCENARIO)
     cfg = AuctionConfig(rounds=8, candidates=0, use_pallas=False)
     t0 = time.perf_counter()
     pl = auction_place(snap, batch, cfg)
     secs = time.perf_counter() - t0
     print(json.dumps({
-        "scenario": {"nodes": args.nodes, "jobs": args.jobs, "seed": args.seed,
-                     "load": 0.7, "gpu_fraction": 0.15, "gang_fraction": 0.05},
+        "scenario": scenario,
         "shards": batch.num_shards,
-        "config": "AuctionConfig(rounds=8, candidates=0, use_pallas=False)",
+        "config": config,
         "placed_jobs": len(pl.by_job(batch)),
         "placed_shards": int(pl.placed.sum()),
         "node_of_sha256": hashlib.sha256(pl.node_of.astype("<i4").tobytes()).hexdigest(),
