@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port's placement solve.
+"""On-card smoke run of the PyTorch/CUDA port: the placement solve, the
+placement tick and the bridge's job lifecycle on the simulated cluster.
 
     python3 chip_smoke.py
 
@@ -43,9 +44,25 @@ which fails the run:
    ``AuctionConfig(rounds=8)``) must route tick 1 to the card with the
    same digest, its kernel calls timed with the gated CUDA events of
    phase 3; prints each tick's phase times (store, encode, solve, bind);
-6. hold the card against the JAX package's result on a reduced scenario
+6. drive the bridge's job lifecycle at full width: the simulator's
+   ``full_50kx10k`` (10,000 nodes, 50,000 jobs, 3 ticks) through the
+   port's ``SimHarness`` — operator, configurator, virtual-node providers
+   submitting to and mirroring the simulated agent over the port's wire
+   codec, the placement scheduler on the card — with the engine pinned
+   (``backend="auction"``, ``AuctionConfig(rounds=8, candidates=0)``). Its
+   determinism ``digest``, ``final_state_digest`` and ``bound_total`` must
+   equal the JAX package's (:data:`SIM_REFERENCE`), with no invariant
+   violated; every solving tick launches the kernel 8 times per solve;
+   each of tick 0's kernel calls is held bit-exact against its plain
+   version on its own operands; the providers' bulk RPCs must have gone
+   through the column decoder (rows counted, no fallback) and their
+   submits through the forked worker pool. Then the same scenario at the
+   product default (``backend="auto"``) for one tick must reach the card
+   with no violation. Prints each tick's phases (arrive, store, encode,
+   solve, bind, mirror, other), the tick p50 and the phase's wall time;
+7. hold the card against the JAX package's result on a reduced scenario
    (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
-7. print times with the card's name and power limit.
+8. print times with the card's name and power limit.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` line; the last line is the run's JSON verdict.
@@ -88,6 +105,18 @@ TICK_REFERENCE = [
     dict(placed=45777, tick_sha256="9e913c369ad1a6feb91985a4aca8cce906f678c60f0f9aeec489f338dee6e17f"),
     dict(placed=3090, tick_sha256="917cd82528af955f68fc31cb4bbdce74b451af11ac1aa02bfb51bb261940eba6"),
 ]
+#: The JAX package's simulator on ``full_50kx10k`` at full width with the
+#: auction pinned, on the CPU, from
+#: ``JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k``.
+SIM_REFERENCE = dict(
+    digest="a20adeb5771b4148b7d20deaa6d260dc8c036efd5b8b00f1d581a682c7baf8d4",
+    final_state_digest="23cfdb80bae8777708c3dc74dc248331b1f2714726db2ee56e520d440cc0ee38",
+    bound_total=46059,
+)
+#: What the JAX package's default (native-routed on the CPU) run of
+#: ``full_50kx10k`` binds over its 3 ticks: printed beside the port's
+#: auto-routed tick for reading, not compared.
+SIM_NATIVE_BOUND = 45_561
 
 #: Peak rates for the bound (NVIDIA H100 SXM data sheet): HBM bytes/s and
 #: float32 non-tensor-core operations/s. Counting every integer and float
@@ -528,6 +557,94 @@ def tick_phase(kern, smi: str) -> dict:
     return dict(ticks=ticks, auto=auto, errs=errs)
 
 
+def sim_phase(kern, smi: str) -> dict:
+    """Phase 6: the bridge's job lifecycle on the simulated cluster at
+    full width (module docstring). Returns what the kernels line and the
+    summary print."""
+    import dataclasses
+
+    import slurm_bridge_tpu_torch.bridge.vnode as vnode
+    from slurm_bridge_tpu_torch.sim.harness import PHASES, SimHarness
+    from slurm_bridge_tpu_torch.sim.scenarios import full_50kx10k
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+    from slurm_bridge_tpu_torch.wire import coldec
+
+    require(coldec.available(), "the column decoder's tables do not match the port's schema")
+
+    def run(sc, label, keep_tick0):
+        """One scenario through ``SimHarness``, counting each tick's kernel
+        launches and solves; with ``keep_tick0``, tick 0's kernel calls
+        are kept (operands and results, untimed)."""
+        h = SimHarness(sc, device="cuda")
+        ticks, tick0 = [], []
+        real = h.run_tick
+
+        def counted(tick, **kw):
+            before, solves = kern.LAUNCHES, h.scheduler.solves_total
+            if tick == 0 and keep_tick0:
+                with kernel_events(keep_operands=True, timed=False) as calls:
+                    phases = real(tick, **kw)
+                tick0.extend(calls)
+            else:
+                phases = real(tick, **kw)
+            ticks.append(dict(launches=kern.LAUNCHES - before,
+                              solves=h.scheduler.solves_total - solves, phases=phases))
+            return phases
+
+        h.run_tick = counted
+        t0 = time.perf_counter()
+        result = h.run()
+        wall_s = time.perf_counter() - t0
+        for i, t in enumerate(ticks):
+            ph = t["phases"]
+            log(f"  {label} tick {i}: {ph['tick']:.1f} ms ("
+                + ", ".join(f"{k} {ph.get(k, 0.0):.1f}" for k in PHASES)
+                + f" ms), solves {t['solves']}, kernel launches {t['launches']} [{smi}]")
+        return result, ticks, tick0, wall_s
+
+    counters = (coldec.rows_counter(), coldec.fallback_counter(), vnode._submit_pool_chunks)
+    before = [c.total() for c in counters]
+    pinned = dataclasses.replace(
+        full_50kx10k(scale=1.0), backend="auction",
+        auction_config=AuctionConfig(rounds=ROUNDS, candidates=0),
+    )
+    require((pinned.cluster.num_nodes, pinned.workload.jobs, pinned.ticks) == (10_000, 50_000, 3),
+            "full_50kx10k is not at full width")
+    result, ticks, tick0, wall_s = run(pinned, "full_50kx10k", keep_tick0=True)
+    rows, fallbacks, pool_chunks = (c.total() - b for c, b in zip(counters, before))
+    d = result.determinism
+    log(f"  digest {d['digest'][:16]}…, final state {d['final_state_digest'][:16]}…, "
+        f"bound {d['bound_total']}, violations {len(d['invariant_violations'])}; "
+        f"coldec rows {rows:.0f}, fallbacks {fallbacks:.0f}, pool submit chunks {pool_chunks:.0f}; "
+        f"tick p50 {result.timing['tick_p50_ms']:.1f} ms, phase wall {wall_s:.1f} s [{smi}]")
+    require(d["invariant_violations"] == [], d["invariant_violations"][:3])
+    for key in ("digest", "final_state_digest", "bound_total"):
+        require(d[key] == SIM_REFERENCE[key],
+                f"full_50kx10k {key} {d[key]} differs from the JAX package's {SIM_REFERENCE[key]}")
+    require(rows > 0 and fallbacks == 0, f"the bytes path did not carry the mirror ({rows}, {fallbacks})")
+    require(pool_chunks > 0, "no submit chunk went through the forked worker pool")
+    require(ticks[0]["solves"] >= 1, "tick 0 did not solve")
+    for i, t in enumerate(ticks):
+        require(t["launches"] == ROUNDS * t["solves"],
+                f"tick {i}: {t['launches']} kernel launches for {t['solves']} solves")
+    require(len(tick0) == ROUNDS * ticks[0]["solves"], f"{len(tick0)} kernel calls kept on tick 0")
+    errs = []
+    for j, r in enumerate(tick0):
+        p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
+        errs.append(compare_recorded(kern, r, f"sim tick 0 call {j} ({n},{p})"))
+
+    auto, auto_ticks, _, auto_s = run(dataclasses.replace(full_50kx10k(scale=1.0), ticks=1),
+                                      "full_50kx10k, backend auto, 1 tick", keep_tick0=False)
+    auto_launches = sum(t["launches"] for t in auto_ticks)
+    require(auto_launches > 0, "the auto-routed run never reached the card")
+    require(auto.determinism["invariant_violations"] == [], "violations in the auto-routed run")
+    log(f"  auto route: kernel launches {auto_launches}, bound {auto.determinism['bound_total']} "
+        f"after 1 tick (the JAX package's native-routed 3-tick run binds {SIM_NATIVE_BOUND}); "
+        f"{auto_s:.1f} s [{smi}]")
+    return dict(result=result, ticks=ticks, errs=errs, wall_s=wall_s,
+                auto_launches=auto_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -697,7 +814,15 @@ def main() -> int:
     require(tick_launches == ROUNDS * 3, f"{tick_launches} kernel launches in the tick phase")
     errs += tick["errs"]
 
-    # 6. the JAX package's result on the reduced scenario
+    # 6. the bridge's job lifecycle on the simulated cluster at full width
+    log("[6] main path: the simulator's full_50kx10k through the port's full bridge loop")
+    kern.LAUNCHES = 0
+    sim = sim_phase(kern, smi)
+    sim_launches = kern.LAUNCHES
+    require(sim_launches > 0, "no kernel launch in the simulator phase")
+    errs += sim["errs"]
+
+    # 7. the JAX package's result on the reduced scenario
     ref_snap, ref_batch = random_scenario(
         REFERENCE["nodes"], REFERENCE["jobs"], seed=42, load=0.7,
         gpu_fraction=0.15, gang_fraction=0.05,
@@ -708,20 +833,24 @@ def main() -> int:
     ref_jobs = len(ref_pl.by_job(ref_batch))
     rel = abs(ref_jobs - REFERENCE["placed_jobs"]) / REFERENCE["placed_jobs"]
     match = digest(ref_pl.node_of) == REFERENCE["node_of_sha256"]
-    log(f"[6] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
+    log(f"[7] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
         f"vs JAX {REFERENCE['placed_jobs']} (rel {rel:.5f}); node_of digest matches JAX: {match}")
     require(rel <= 0.005, rel)
 
-    # 7. times
+    # 8. times
     p50 = statistics.median(wall_ms)
-    log(f"[7] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
+    log(f"[8] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
         f"(min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); kernel {kernel_ms:.4f} ms/launch "
         f"(bound {bound_ms:.4f}, ceiling {ceiling_ms:.4f}), {ms_per_solve:.4f} ms per solve; "
         f"total run {time.perf_counter() - t_start:.0f} s")
     for i, t in enumerate(tick["ticks"]):
-        log(f"[7] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
+        log(f"[8] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in t["phase_ms"].items())
             + f"; {t['launches']} kernel launches")
+    log(f"[8] [{smi}] full_50kx10k: tick p50 {sim['result'].timing['tick_p50_ms']:.1f} ms, "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in sim["result"].timing["phases_p50_ms"].items())
+        + f" (p50 over {len(sim['ticks'])} ticks); {sim_launches} kernel launches; "
+        f"phase wall {sim['wall_s']:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "bid_argmax",
@@ -737,7 +866,8 @@ def main() -> int:
         "library_ms": None,
         "ms_per_solve": ms_per_solve,
         "ceiling_ms": ceiling_ms,
-        "launches_per_tick": [t["launches"] for t in tick["ticks"]],
+        "launches_per_tick": [t["launches"] for t in tick["ticks"]]
+        + [t["launches"] for t in sim["ticks"]],
         "tick_kernel_ms": tick["auto"]["kernel_ms"],
     }]}))
     print(smi)

@@ -1,11 +1,10 @@
-"""Placement-quality policy subsystem.
+"""Placement-quality policy subsystem (ISSUE 9).
 
 Priority classes, weighted dominant-resource fair share, a bounded
-preemption pool and post-solve backfill. Attached to the scheduler via
+preemption pool, post-solve backfill, and the quality scorecard the sim
+scenarios are gated on. Attached to the scheduler via
 ``PlacementScheduler(policy=PlacementPolicy(PolicyConfig(...)))``;
-``policy=None`` (the default) leaves the tick untouched. The quality
-scorecard (``policy/score.py`` in the JAX package) comes with the
-simulator.
+``policy=None`` (the default) is byte-identical PR-8 behavior.
 """
 
 from slurm_bridge_tpu_torch.policy.classes import (
@@ -21,6 +20,7 @@ from slurm_bridge_tpu_torch.policy.fairshare import (
     dominant_share,
     jain_index,
 )
+from slurm_bridge_tpu_torch.policy.score import QualityTracker
 
 __all__ = [
     "CLASS_LABEL",
@@ -33,4 +33,5 @@ __all__ = [
     "FairShare",
     "dominant_share",
     "jain_index",
+    "QualityTracker",
 ]

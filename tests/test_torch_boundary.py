@@ -5,6 +5,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 import slurm_bridge_tpu_torch
 
 _PKG = pathlib.Path(slurm_bridge_tpu_torch.__file__).resolve().parent
@@ -17,6 +19,8 @@ def _port_modules():
         parts = list(rel.parts)
         if parts[-1] == "__init__":
             parts.pop()
+        elif parts[-1] == "__main__":
+            continue  # runs the CLI; its package is imported instead
         names.append(".".join(parts))
     return names
 
@@ -71,6 +75,41 @@ TICK_MODULES = [
 ]
 
 
+#: the job lifecycle's modules (the operator, the virtual-node provider,
+#: the configurator, the wire codec and the simulator): each importable on
+#: its own, without grpc or protobuf
+LIFECYCLE_MODULES = [
+    "slurm_bridge_tpu_torch.core",
+    "slurm_bridge_tpu_torch.core.durations",
+    "slurm_bridge_tpu_torch.core.timeparse",
+    "slurm_bridge_tpu_torch.core.hostlist",
+    "slurm_bridge_tpu_torch.core.scontrol",
+    "slurm_bridge_tpu_torch.core.sbatch",
+    "slurm_bridge_tpu_torch.core.sacct",
+    "slurm_bridge_tpu_torch.wire.codec",
+    "slurm_bridge_tpu_torch.wire.coldec",
+    "slurm_bridge_tpu_torch.wire.rpc",
+    "slurm_bridge_tpu_torch.parallel.writeops",
+    "slurm_bridge_tpu_torch.parallel.colpool",
+    "slurm_bridge_tpu_torch.bridge.controller",
+    "slurm_bridge_tpu_torch.bridge.operator",
+    "slurm_bridge_tpu_torch.bridge.vnode",
+    "slurm_bridge_tpu_torch.bridge.configurator",
+    "slurm_bridge_tpu_torch.obs.flight",
+    "slurm_bridge_tpu_torch.policy.score",
+    "slurm_bridge_tpu_torch.shard",
+    "slurm_bridge_tpu_torch.shard.planner",
+    "slurm_bridge_tpu_torch.sim",
+    "slurm_bridge_tpu_torch.sim.trace",
+    "slurm_bridge_tpu_torch.sim.agent",
+    "slurm_bridge_tpu_torch.sim.faults",
+    "slurm_bridge_tpu_torch.sim.invariants",
+    "slurm_bridge_tpu_torch.sim.harness",
+    "slurm_bridge_tpu_torch.sim.scenarios",
+    "slurm_bridge_tpu_torch.sim.cli",
+]
+
+
 def _foreign_after_import(mod: str) -> list[str]:
     """Modules of JAX, of the JAX package, of grpc or of protobuf in
     ``sys.modules`` after a fresh interpreter imports ``mod``."""
@@ -101,6 +140,25 @@ def test_scheduler_imports_no_grpc_or_protobuf():
     assert _foreign_after_import("slurm_bridge_tpu_torch.bridge") == []
 
 
+def test_lifecycle_modules_are_ported():
+    assert set(LIFECYCLE_MODULES) <= set(_port_modules())
+
+
+@pytest.mark.parametrize("mod", [
+    "slurm_bridge_tpu_torch.sim",
+    "slurm_bridge_tpu_torch.sim.cli",
+    "slurm_bridge_tpu_torch.bridge.operator",
+    "slurm_bridge_tpu_torch.bridge.vnode",
+    "slurm_bridge_tpu_torch.bridge.configurator",
+    "slurm_bridge_tpu_torch.wire.rpc",
+    "slurm_bridge_tpu_torch.parallel.colpool",
+])
+def test_lifecycle_imports_no_grpc_or_protobuf(mod):
+    """The simulator, the operator and the provider run on the card's
+    machine, which has neither grpc nor protobuf."""
+    assert _foreign_after_import(mod) == []
+
+
 def test_chip_smoke_imports_no_jax():
     """chip_smoke.py reaches only the port (checked on its source, since
     running it needs the card)."""
@@ -111,3 +169,4 @@ def test_chip_smoke_imports_no_jax():
             mod = stripped.split()[1]
             assert mod != "jax" and not mod.startswith("jax.")
             assert mod != "slurm_bridge_tpu" and not mod.startswith("slurm_bridge_tpu.")
+            assert mod.split(".")[0] != "grpc" and not mod.startswith("google.protobuf")

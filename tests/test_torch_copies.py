@@ -1,6 +1,8 @@
 """Copy-drift gate: the port's copies of the JAX package's NumPy, ctypes
 and C++ modules stay the reference text, with the import prefix rewritten
-and only the changes listed here."""
+and only the changes listed here. A change is ``(old, new)``, applying
+where ``old`` occurs exactly once, or ``(old, new, n)`` where it occurs
+exactly ``n`` times."""
 
 import pathlib
 
@@ -129,6 +131,182 @@ ALLOWED = {
         ('pathlib.Path(__file__).parent / "native" / "libsbtindexed.so"',
          'BUILD_DIR / "libsbtindexed.so"'),
     ],
+    # ---- the job lifecycle on the simulated cluster ----
+    "core/durations.py": [],
+    "core/timeparse.py": [],
+    "core/hostlist.py": [],
+    "core/scontrol.py": [],
+    "core/sbatch.py": [],
+    "core/sacct.py": [],
+    "core/__init__.py": [],
+    # the schema is the port's own message table, not workload_pb2
+    "wire/coldec.py": [
+        ("from slurm_bridge_tpu_torch.wire import workload_pb2 as pb\n",
+         "from slurm_bridge_tpu_torch.wire import messages as pb\n"),
+    ],
+    "wire/convert.py": [
+        ("from slurm_bridge_tpu_torch.wire import workload_pb2 as pb\n",
+         "from slurm_bridge_tpu_torch.wire import messages as pb\n"),
+    ],
+    "parallel/writeops.py": [],
+    # fork hygiene: each worker closes the parent-side pipe ends it
+    # inherits (its own and its elder siblings'), so a parent that dies
+    # without reaping its pool leaves no worker blocked in recv() forever
+    "parallel/colpool.py": [
+        ("def _worker_main(conn) -> None:  # pragma: no cover - runs in the child\n",
+         "def _worker_main(conn, inherited=()) -> None:  # pragma: no cover - runs in the child\n"
+         "    # the parent's ends of this worker's pipe and of its elder\n"
+         "    # siblings' pipes came along with the fork: holding them open\n"
+         "    # would keep recv() below from ever seeing EOF once the parent\n"
+         "    # is gone, and the orphan would live on holding the parent's\n"
+         "    # inherited descriptors\n"
+         "    for c in inherited:\n"
+         "        c.close()\n"),
+        ("                    proc = ctx.Process(\n"
+         "                        target=_worker_main, args=(child,), daemon=True\n"
+         "                    )\n",
+         "                    proc = ctx.Process(\n"
+         "                        target=_worker_main,\n"
+         "                        args=(child, [parent, *self._conns]),\n"
+         "                        daemon=True,\n"
+         "                    )\n"),
+    ],
+    "bridge/controller.py": [],
+    "bridge/operator.py": [],
+    # no grpc on the card's machine: the port's RpcError and StatusCode
+    "bridge/vnode.py": [
+        ("import grpc\nimport numpy as np\n", "import numpy as np\n"),
+        ("from slurm_bridge_tpu_torch.wire import ServiceClient, pb\n",
+         "from slurm_bridge_tpu_torch.wire import RpcError, ServiceClient, StatusCode, pb\n"),
+        ("grpc.RpcError", "RpcError", 10),
+        ("grpc.StatusCode", "StatusCode", 15),
+    ],
+    "bridge/configurator.py": [],
+    "obs/flight.py": [],
+    "policy/score.py": [],
+    "policy/__init__.py": [],
+    "shard/planner.py": [],
+    "sim/trace.py": [],
+    "sim/invariants.py": [],
+    "sim/agent.py": [
+        ("so the bridge's grpc error handling", "so the bridge's RPC error handling"),
+        ("            import grpc\n",
+         "            from slurm_bridge_tpu_torch.wire import StatusCode\n", 2),
+        ("grpc.StatusCode.NOT_FOUND", "StatusCode.NOT_FOUND", 2),
+    ],
+    # SimRpcError is the port's RpcError
+    "sim/faults.py": [
+        ("a real ``grpc.RpcError`` so every production",
+         "the port's ``RpcError``, so every production"),
+        ("import grpc\n",
+         "from slurm_bridge_tpu_torch.wire.errors import RpcError, StatusCode\n"),
+        ("class SimRpcError(grpc.RpcError):", "class SimRpcError(RpcError):"),
+        ("        super().__init__(details)\n", "        super().__init__(code, details)\n"),
+        ("grpc.StatusCode", "StatusCode", 4),
+    ],
+    "sim/harness.py": [
+        ("import grpc\nimport numpy as np\n", "import numpy as np\n"),
+        # persistence, leader election and the agent journal: imported
+        # where used, and refused up front (_refuse_unported)
+        ("from slurm_bridge_tpu_torch.bridge.leader import LeaderElector\n", ""),
+        ("from slurm_bridge_tpu_torch.bridge.persist import StorePersistence, load_into\n", ""),
+        ("from slurm_bridge_tpu_torch.agent.journal import AgentJournal\n", ""),
+        ("        return StorePersistence(\n",
+         "        from slurm_bridge_tpu_torch.bridge.persist import StorePersistence\n\n"
+         "        return StorePersistence(\n"),
+        ("        restored = load_into(self.store, self.state_file)\n",
+         "        from slurm_bridge_tpu_torch.bridge.persist import load_into\n\n"
+         "        restored = load_into(self.store, self.state_file)\n"),
+        ("            self.agent_journal = AgentJournal(\n",
+         "            from slurm_bridge_tpu_torch.agent.journal import AgentJournal\n\n"
+         "            self.agent_journal = AgentJournal(\n"),
+        ("            self.elector = LeaderElector(\n",
+         "            from slurm_bridge_tpu_torch.bridge.leader import LeaderElector\n\n"
+         "            self.elector = LeaderElector(\n"),
+        ("from slurm_bridge_tpu_torch.parallel import colpool\n",
+         "from slurm_bridge_tpu_torch.parallel import colpool\n"
+         "from slurm_bridge_tpu_torch.parallel.backend import ensure_backend\n"),
+        ("from slurm_bridge_tpu_torch.wire.rpc import RetryingClient, RetryPolicy\n",
+         "from slurm_bridge_tpu_torch.wire.errors import RpcError\n"
+         "from slurm_bridge_tpu_torch.wire.rpc import RetryingClient, RetryPolicy\n"),
+        ("grpc.RpcError", "RpcError", 7),
+        ("\nclass SimHarness:\n",
+         "\ndef _refuse_unported(scenario: Scenario) -> None:\n"
+         '    """Raise for a scenario that needs a part of the bridge the port does\n'
+         "    not carry yet: persistence, leader election and the agent journal\n"
+         "    (ROADMAP Queue 1 item 4, the durability slice), sharded placement\n"
+         '    (item 5) or the fleet (item 7)."""\n'
+         "    kinds = {f.kind for f in scenario.faults.faults}\n"
+         "    if scenario.persistence or kinds & {\n"
+         '        "crash_restart", "leader_failover", "agent_crash",\n'
+         "    }:\n"
+         "        raise NotImplementedError(\n"
+         '            f"{scenario.name}: bridge persistence, leader election and the "\n'
+         '            "agent journal are not ported yet: ROADMAP Queue 1 item 4"\n'
+         "        )\n"
+         "    if scenario.sharding is not None:\n"
+         "        raise NotImplementedError(\n"
+         '            f"{scenario.name}: sharded placement is not ported yet: ROADMAP "\n'
+         '            "Queue 1 item 5"\n'
+         "        )\n"
+         '    if scenario.fleet is not None or "kill_replica" in kinds:\n'
+         "        raise NotImplementedError(\n"
+         '            f"{scenario.name}: the fleet runtime is not ported yet: ROADMAP "\n'
+         '            "Queue 1 item 7"\n'
+         "        )\n"
+         "\n\nclass SimHarness:\n"),
+        # the device keyword, checked before anything is built
+        ("    def __init__(self, scenario: Scenario):\n"
+         "        _quiet_event_logs()\n"
+         "        self.scenario = scenario\n",
+         "    def __init__(self, scenario: Scenario, device=None):\n"
+         "        _quiet_event_logs()\n"
+         "        self.scenario = scenario\n"
+         "        _refuse_unported(scenario)\n"
+         "        #: where the scheduler's device auction runs: None is the card\n"
+         '        #: (or SBT_BACKEND=cpu), "cpu" the host (parallel/backend.py)\n'
+         "        self.device = device\n"
+         "        ensure_backend(device)\n"),
+        ("            explain_target=scenario.explain_target,\n        )\n",
+         "            explain_target=scenario.explain_target,\n"
+         "            device=self.device,\n        )\n"),
+        ("def run_scenario(scenario: Scenario) -> ScenarioResult:\n"
+         "    return SimHarness(scenario).run()\n",
+         "def run_scenario(scenario: Scenario, device=None) -> ScenarioResult:\n"
+         "    return SimHarness(scenario, device=device).run()\n"),
+    ],
+    # the fleet waits: its scenarios refuse to build, and the smoke set
+    # skips them before building any
+    "sim/scenarios.py": [
+        ("    from slurm_bridge_tpu_torch.fleet.runtime import FleetConfig\n",
+         "    raise NotImplementedError(\n"
+         '        "the fleet runtime is not ported yet: ROADMAP Queue 1 item 7"\n'
+         "    )\n"
+         "    from slurm_bridge_tpu_torch.fleet.runtime import FleetConfig\n", 2),
+        ("    if not f().slow\n"
+         "    and n not in CHAOS_SCENARIOS\n"
+         "    and n not in QUALITY_SCENARIOS\n"
+         "    and n not in ADMISSION_SCENARIOS\n"
+         "    and n not in FLEET_SCENARIOS\n",
+         "    if n not in FLEET_SCENARIOS\n"
+         "    and not f().slow\n"
+         "    and n not in CHAOS_SCENARIOS\n"
+         "    and n not in QUALITY_SCENARIOS\n"
+         "    and n not in ADMISSION_SCENARIOS\n"),
+    ],
+    # --list names the scenarios that wait instead of failing on them
+    "sim/cli.py": [
+        ("        for name, f in SCENARIOS.items():\n"
+         "            sc = f()\n",
+         "        for name, f in SCENARIOS.items():\n"
+         "            try:\n"
+         "                sc = f()\n"
+         "            except NotImplementedError as e:\n"
+         '                print(f"{name} [not ported]: {e}")\n'
+         "                continue\n"),
+    ],
+    "sim/__init__.py": [],
+    "sim/__main__.py": [],
 }
 
 
@@ -136,7 +314,8 @@ ALLOWED = {
 def test_copy_matches_reference(rel):
     ref = (ROOT / "slurm_bridge_tpu" / rel).read_text()
     want = ref.replace("slurm_bridge_tpu.", "slurm_bridge_tpu_torch.")
-    for old, new in ALLOWED[rel]:
-        assert want.count(old) == 1, f"{rel}: allowed change no longer applies: {old!r}"
+    for old, new, *times in ALLOWED[rel]:
+        n = times[0] if times else 1
+        assert want.count(old) == n, f"{rel}: allowed change no longer applies: {old!r}"
         want = want.replace(old, new)
     assert (ROOT / "slurm_bridge_tpu_torch" / rel).read_text() == want

@@ -322,3 +322,67 @@ def test_work_list_kernel_equals_plain(cuda, p, live_frac):
         got = kern.work_list(mask, order)
         want = kern.work_list_plain(mask, order)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_sim_on_card_equals_cpu(cuda):
+    """The full bridge loop (operator, providers, scheduler, simulated
+    agent) on full_50kx10k at scale 0.05 with the auction pinned: the
+    card's run ends with the CPU's digests, its solves on the kernel."""
+    import dataclasses
+
+    from slurm_bridge_tpu_torch.sim import run_scenario
+    from slurm_bridge_tpu_torch.sim.scenarios import full_50kx10k
+
+    sc = dataclasses.replace(
+        full_50kx10k(scale=0.05), backend="auction",
+        auction_config=AuctionConfig(rounds=8, candidates=0),
+    )
+    before = kern.LAUNCHES
+    card = run_scenario(sc, device="cuda")
+    assert kern.LAUNCHES > before
+    cpu = run_scenario(sc, device="cpu")
+    for key in ("digest", "final_state_digest", "bound_total"):
+        assert card.determinism[key] == cpu.determinism[key], key
+    assert card.determinism["invariant_violations"] == []
+
+
+_POOL_AFTER_CUDA = """
+import os, sys
+import torch
+os.environ["SBT_COLPOOL_WORKERS"] = "2"
+torch.ones(4, device="cuda").sum().item()  # the parent's CUDA context
+from slurm_bridge_tpu_torch.parallel import colpool
+from slurm_bridge_tpu_torch.wire import coldec, messages as pb
+resp = pb.JobsInfoResponse(version=3)
+for j in range(20):
+    e = resp.jobs.add(job_id=j, found=True)
+    e.info.add(id=j, name=f"j{j}", status=5, run_time_s=j)
+blobs = [resp.SerializeToString()] * 4
+pool = colpool.active_pool()
+got = pool.decode_jobs_info_many(blobs)
+want = colpool.decode_serial(blobs)
+assert got is not None and len(got) == 4
+for a, b in zip(got, want):
+    assert a.jid.tolist() == b.jid.tolist() and a.state.tolist() == b.state.tolist()
+colpool.reset()
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_forked_pool_worker_answers_after_the_parent_initialized_cuda(cuda):
+    """The provider's pool forks after the tick has created the CUDA
+    context; its workers touch no torch, so they answer."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", _POOL_AFTER_CUDA], capture_output=True, text=True,
+        cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)), timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"

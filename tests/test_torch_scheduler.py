@@ -339,9 +339,9 @@ _RESPONSE_EDITS = [
 
 @pytest.mark.parametrize("edit", [name for name, _ in _RESPONSE_EDITS])
 def test_nodes_decode_cache_keys_on_content_like_the_jax_package(edit):
-    """The port's NodesDecodeCache keys on content_key(), the JAX
-    package's on the serialized bytes: across a fresh response equal to
-    the last, and one with ``edit`` applied, both replay or both decode."""
+    """Both packages' NodesDecodeCache key on the serialized bytes (the
+    port's from its own codec): across a fresh response equal to the
+    last, and one with ``edit`` applied, both replay or both decode."""
     fn = dict(_RESPONSE_EDITS)[edit]
     hits = {}
     for pkg in ("slurm_bridge_tpu", "slurm_bridge_tpu_torch"):

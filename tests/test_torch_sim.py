@@ -1,0 +1,384 @@
+"""The port's simulator against the JAX package's, scenario for scenario.
+
+The same scenario, seed and scale run through both packages' full bridge
+loop — operator, configurator and virtual-node providers, placement
+scheduler, simulated agent, fault client — on the CPU. The determinism
+``digest`` (every bind, preemption and pending count, tick by tick) and
+the ``final_state_digest`` (bindings, placements and lifecycle on both
+sides of the wire) must be equal. No tolerance. The port also reproduces
+the JAX package's pinned ``tests/fixtures/*_off_baseline.json`` digests,
+run the way the JAX package's tests run them, and refuses the scenarios
+whose modules it does not carry yet.
+
+Every test resets both packages' forked worker pools when it ends.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import pathlib
+import signal
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+
+import slurm_bridge_tpu.parallel.colpool as jax_colpool
+import slurm_bridge_tpu.sim as jax_sim
+import slurm_bridge_tpu.sim.harness as jax_harness
+import slurm_bridge_tpu.sim.scenarios as jax_scenarios
+import slurm_bridge_tpu.solver.auction as jax_auction
+import slurm_bridge_tpu_torch.bridge.operator as port_operator
+import slurm_bridge_tpu_torch.bridge.vnode as port_vnode
+import slurm_bridge_tpu_torch.parallel.colpool as port_colpool
+import slurm_bridge_tpu_torch.sim as port_sim
+import slurm_bridge_tpu_torch.sim.harness as port_harness
+import slurm_bridge_tpu_torch.sim.scenarios as port_scenarios
+import slurm_bridge_tpu_torch.solver.auction as port_auction
+from slurm_bridge_tpu_torch.parallel.backend import BackendUnavailable
+from slurm_bridge_tpu_torch.wire.errors import RpcError, StatusCode
+
+FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
+REPO = FIXTURES.parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads: the suite runs in parallel workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(autouse=True)
+def _reap_pools(monkeypatch):
+    """Two forked pool workers per run (the suite runs in parallel
+    workers), and neither package's pool outlives a test."""
+    monkeypatch.setenv("SBT_COLPOOL_WORKERS", "2")
+    yield
+    port_colpool.reset()
+    jax_colpool.reset()
+
+
+def _pinned_auction(sc, auction):
+    """The headline's engine pinned, as chip_smoke.py runs it on the card."""
+    return dataclasses.replace(
+        sc, backend="auction",
+        auction_config=auction.AuctionConfig(rounds=8, candidates=0),
+    )
+
+
+def _both(name: str, scale: float, *, pin_auction: bool = False, **replace):
+    jsc = jax_scenarios.SCENARIOS[name](scale=scale)
+    psc = port_scenarios.SCENARIOS[name](scale=scale)
+    if pin_auction:
+        jsc, psc = _pinned_auction(jsc, jax_auction), _pinned_auction(psc, port_auction)
+    if replace:
+        jsc, psc = dataclasses.replace(jsc, **replace), dataclasses.replace(psc, **replace)
+    return jax_sim.run_scenario(jsc), port_sim.run_scenario(psc, device="cpu")
+
+
+#: (scenario, scale, pin the auction): every scenario the port runs today,
+#: at a scale that keeps each pair of runs to seconds
+DIGEST_CASES = [
+    ("steady_poisson", 0.05, False),
+    ("burst_backlog", 0.05, False),
+    ("agent_flaky_rpc", 0.05, False),
+    ("preemption_storm", 0.12, False),
+    ("node_churn", 0.05, False),
+    ("partition_vanish", 0.05, False),
+    ("diurnal_load", 0.12, False),  # its own config pins the auction
+    ("multi_tenant_storm", 0.05, False),
+    ("priority_inversion", 0.12, False),
+    ("elastic_resize", 0.05, False),
+    ("interactive_storm", 0.05, False),
+    ("steady_state_soak", 0.1, False),
+    ("full_50kx10k", 0.02, False),
+    ("full_50kx10k", 0.02, True),  # chip_smoke.py's configuration
+    ("full_50kx10k_steady", 0.02, False),
+]
+
+
+@pytest.mark.parametrize(
+    "name,scale,pin", DIGEST_CASES,
+    ids=[f"{n}-{s}{'-auction' if p else ''}" for n, s, p in DIGEST_CASES],
+)
+def test_digests_equal_the_jax_package(name, scale, pin):
+    ref, port = _both(name, scale, pin_auction=pin)
+    for key in ("digest", "final_state_digest", "bound_total", "events",
+                "preempted_total", "sim", "injected_errors", "rpc_failures",
+                "invariant_violations"):
+        assert port.determinism[key] == ref.determinism[key], key
+    assert port.determinism_json() == ref.determinism_json()
+    # the scorecard, but for the fast path's latencies (wall-clock ms)
+    assert _virtual(port.quality) == _virtual(ref.quality)
+
+
+def _virtual(quality: dict) -> dict:
+    return {k: v for k, v in quality.items() if "latency" not in k}
+
+
+# ---- the JAX package's pinned baselines ---------------------------------
+
+
+def _fixture_cases():
+    """(fixture, scenario, arm) the way the JAX package's tests run them:
+    the ``*_off`` arm replaces the named field, ``on`` runs the default."""
+    arms = {
+        "coldec_off_baseline": [("coldec", False), ("on", None)],
+        "frames_off_baseline": [("mirror_frames", False)],
+        "incremental_off_baseline": [("incremental", False), ("on", None)],
+        "policy_off_baseline": [("on", None)],
+        "admission_off_baseline": [("admission", None)],
+    }
+    #: the JAX package's tests run coldec "on" for these two only
+    coldec_on = {"burst_backlog", "steady_poisson"}
+    out = []
+    for fixture, fixture_arms in arms.items():
+        base = json.loads((FIXTURES / f"{fixture}.json").read_text())
+        for name in sorted(base):
+            if name in ("sharded_smoke", "crash_restart"):
+                continue  # their modules wait (ROADMAP Queue 1 items 4, 5)
+            for arm in fixture_arms:
+                if fixture == "coldec_off_baseline" and arm[0] == "on" \
+                        and name not in coldec_on:
+                    continue
+                out.append((fixture, name, arm))
+    return out
+
+
+FIXTURE_CASES = _fixture_cases()
+
+
+@pytest.mark.parametrize(
+    "fixture,name,arm", FIXTURE_CASES,
+    ids=[f"{f.removesuffix('_off_baseline')}-{n}-{a[0]}" for f, n, a in FIXTURE_CASES],
+)
+def test_port_reproduces_off_baseline(fixture, name, arm):
+    want = json.loads((FIXTURES / f"{fixture}.json").read_text())[name]
+    sc = port_scenarios.SCENARIOS[name](scale=want["scale"], seed=want["seed"])
+    field, value = arm
+    if field != "on":
+        sc = dataclasses.replace(sc, **{field: value})
+    d = port_sim.run_scenario(sc, device="cpu").determinism
+    assert d["digest"] == want["digest"]
+    assert d["final_state_digest"] == want["final_state_digest"]
+    got, exp = dict(d["events"]), dict(want["events"])
+    if sc.incremental and fixture in ("incremental_off_baseline", "policy_off_baseline"):
+        # the incremental tick emits PlacementFailed once per backlog
+        # generation: at most the fixture's per-tick count, and some
+        got_pf, want_pf = got.pop("PlacementFailed", 0), exp.pop("PlacementFailed", 0)
+        assert (0 < got_pf <= want_pf) if want_pf else got_pf == 0
+    assert got == exp
+    for key in ("bound_total", "preempted_total"):
+        if key in want:
+            assert d[key] == want[key], key
+
+
+def test_every_fixture_entry_is_reproduced_or_waits():
+    """Each entry of the five fixtures is one of the cases above, except
+    the sharded and crash entries, whose modules wait."""
+    for fixture in ("coldec", "frames", "incremental", "policy", "admission"):
+        base = json.loads((FIXTURES / f"{fixture}_off_baseline.json").read_text())
+        covered = {n for f, n, _ in FIXTURE_CASES if f == f"{fixture}_off_baseline"}
+        assert set(base) - covered <= {"sharded_smoke", "crash_restart"}
+
+
+# ---- what waits, and the card -------------------------------------------
+
+
+#: scenarios that need persistence, leader election, the agent journal,
+#: sharding or the fleet
+WAITING = [
+    "crash_restart", "leader_failover", "agent_crash", "chaos_dual_crash",
+    "chaos_crash_rpc_flap", "chaos_crash_into_vanished_partition",
+    "full_50kx10k_crash", "sharded_smoke", "sharded_gang_split",
+    "full_500kx100k", "full_500kx100k_steady", "full_1mx200k",
+    "fleet_smoke", "fleet_kill_owner",
+]
+
+
+@pytest.mark.parametrize("name", WAITING)
+def test_scenario_needing_unported_modules_raises(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        port_sim.run_scenario(
+            port_scenarios.SCENARIOS[name](scale=0.01), device="cpu"
+        )
+    assert port_colpool._pool is None  # refused before anything started
+
+
+def test_waiting_scenarios_are_the_ones_listed():
+    """Every other scenario runs: the list above is exactly what waits."""
+    runnable = set(port_scenarios.SCENARIOS) - set(WAITING)
+    assert {n for n, _, _ in DIGEST_CASES} == runnable
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.delenv("SBT_BACKEND", raising=False)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is the card")
+    sc = port_scenarios.steady_poisson(scale=0.02)
+    with pytest.raises(BackendUnavailable):
+        port_sim.run_scenario(sc)
+    with pytest.raises(BackendUnavailable):
+        port_harness.SimHarness(sc)
+    monkeypatch.setenv("SBT_BACKEND", "cpu")
+    assert port_sim.run_scenario(dataclasses.replace(sc, ticks=2)).determinism["digest"]
+
+
+def test_sim_rpc_error_is_the_ports_rpc_error():
+    err = port_sim.SimRpcError(StatusCode.NOT_FOUND, "nope")
+    assert isinstance(err, RpcError)
+    assert err.code() == StatusCode.NOT_FOUND
+    assert err.details() == "nope"
+    assert str(err) == "NOT_FOUND: nope"
+
+
+def test_cli_runs_a_scenario_on_the_cpu():
+    """``python -m slurm_bridge_tpu_torch.sim`` as a user runs it, with
+    the digest the JAX package's run gives."""
+    env = dict(os.environ, SBT_BACKEND="cpu", PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-m", "slurm_bridge_tpu_torch.sim", "steady_poisson",
+         "--scale", "0.05", "--ticks", "4"],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads([ln for ln in out.stdout.splitlines() if ln.startswith("{")][0])
+    ref = jax_sim.run_scenario(
+        dataclasses.replace(jax_scenarios.steady_poisson(scale=0.05), ticks=4)
+    )
+    assert got["determinism"]["digest"] == ref.determinism["digest"]
+    listed = subprocess.run(
+        [sys.executable, "-m", "slurm_bridge_tpu_torch.sim", "--list"],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120,
+    )
+    assert listed.returncode == 0, listed.stderr
+    assert "fleet_smoke [not ported]" in listed.stdout
+    assert "full_50kx10k [slow]:" in listed.stdout
+
+
+# ---- the forked pool ----------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pool_arms():
+    """burst_backlog run four ways — the JAX package, and the port with
+    its pool disabled, forced to two workers, and forced to two workers
+    killed before the run (the broken-pool inline fallback) — with the
+    port's offload counters across the forced run."""
+    prior = os.environ.get("SBT_COLPOOL_WORKERS")
+    sc = port_scenarios.burst_backlog(scale=0.12)
+    try:
+        os.environ["SBT_COLPOOL_WORKERS"] = "0"
+        ref = jax_sim.run_scenario(jax_scenarios.burst_backlog(scale=0.12))
+        port_colpool.reset()
+        serial = port_sim.run_scenario(sc, device="cpu")
+        os.environ["SBT_COLPOOL_WORKERS"] = "2"
+        port_colpool.reset()
+        sub0 = port_vnode._submit_pool_chunks.total()
+        row0 = port_operator._sweep_pool_rows.total()
+        pooled = port_sim.run_scenario(sc, device="cpu")
+        counters = (
+            port_vnode._submit_pool_chunks.total() - sub0,
+            port_operator._sweep_pool_rows.total() - row0,
+        )
+        port_colpool.reset()
+        p = port_colpool.active_pool()
+        assert p is not None and p._ensure()
+        for proc in p._procs:
+            proc.terminate()
+        for proc in p._procs:
+            proc.join(timeout=5.0)
+        broken = port_sim.run_scenario(sc, device="cpu")
+    finally:
+        port_colpool.reset()
+        if prior is None:
+            os.environ.pop("SBT_COLPOOL_WORKERS", None)
+        else:
+            os.environ["SBT_COLPOOL_WORKERS"] = prior
+    return ref, serial, pooled, broken, counters
+
+
+@pytest.mark.parametrize("arm", ["serial", "pooled", "broken"])
+def test_pool_is_digest_neutral(pool_arms, arm):
+    ref, serial, pooled, broken, _ = pool_arms
+    run = {"serial": serial, "pooled": pooled, "broken": broken}[arm]
+    assert run.determinism["digest"] == ref.determinism["digest"]
+    assert run.determinism["final_state_digest"] == ref.determinism["final_state_digest"]
+    assert run.determinism["invariant_violations"] == []
+
+
+def test_pool_work_left_the_main_thread(pool_arms):
+    submit_chunks, sweep_rows = pool_arms[-1]
+    assert submit_chunks > 0 and sweep_rows > 0
+
+
+def test_raising_run_reaps_both_pools(monkeypatch):
+    """A run that dies mid-tick still joins its forked workers."""
+    monkeypatch.setenv("SBT_COLPOOL_WORKERS", "2")
+    procs = []
+    for colpool, harness, scenarios, kw in (
+        (port_colpool, port_harness, port_scenarios, {"device": "cpu"}),
+        (jax_colpool, jax_harness, jax_scenarios, {}),
+    ):
+        colpool.reset()
+        p = colpool.active_pool()
+        assert p is not None and p._ensure()
+        procs += list(p._procs)
+        h = harness.SimHarness(scenarios.steady_poisson(scale=0.05), **kw)
+        monkeypatch.setattr(
+            h, "run_tick",
+            lambda *a, **k: (_ for _ in ()).throw(RuntimeError("mid-tick")),
+        )
+        with pytest.raises(RuntimeError, match="mid-tick"):
+            h.run()
+        assert colpool._pool is None
+    for pr in procs:
+        pr.join(timeout=5.0)
+    assert not any(pr.is_alive() for pr in procs)
+
+
+_ORPHAN = """
+import os, sys
+os.environ["SBT_COLPOOL_WORKERS"] = "2"
+from slurm_bridge_tpu_torch.parallel import colpool
+p = colpool.active_pool()
+assert p._ensure()
+print(" ".join(str(pr.pid) for pr in p._procs), flush=True)
+os.kill(os.getpid(), 9)
+"""
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split()[2] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def test_pool_workers_exit_when_their_parent_dies_unreaped():
+    """A parent killed before it can reap its pool leaves no worker
+    behind: each worker sees EOF on its pipe and exits (a worker that
+    kept the parent's pipe ends open would wait in recv() forever,
+    holding every descriptor it inherited)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _ORPHAN], capture_output=True, text=True,
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)), timeout=120,
+    )
+    assert out.returncode == -signal.SIGKILL
+    pids = [int(x) for x in out.stdout.split()]
+    assert len(pids) == 2
+    deadline = time.monotonic() + 10.0
+    while any(_alive(pid) for pid in pids) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    alive = [pid for pid in pids if _alive(pid)]
+    for pid in alive:
+        os.kill(pid, signal.SIGKILL)
+    assert alive == []

@@ -1,4 +1,4 @@
-"""Where the time of one headline solve, or one headline tick, goes on the card.
+"""Where the time of one headline solve, tick or simulator run goes on the card.
 
 Profiles ``DeviceSolver.solve`` of the 57,635 × 10,000 headline scenario
 (rounds=8, the ``bid_argmax`` kernel path) with ``torch.profiler`` after a
@@ -9,12 +9,16 @@ time of the ``bid_argmax`` kernels, the count of host synchronisations
 ``cudaDeviceSynchronize``) in the solve, and the operators that take the
 most host and device time. Needs a CUDA card.
 
-    python tools/port_profile.py [--rows 25] [--root DIR] [--tick]
+    python tools/port_profile.py [--rows 25] [--root DIR] [--tick | --sim]
 
 ``--tick`` profiles tick 1 of chip_smoke.py's tick phase instead: a
 ``PlacementScheduler`` (``backend="auction"``, rounds=8) over the typed
 headline inventory with its 50,000 jobs pending in a fresh store, after a
 warm-up tick on another store; it also prints the tick's phase times.
+``--sim`` profiles chip_smoke.py's simulator run instead: ``SimHarness``
+on ``full_50kx10k`` at full width (3 ticks, ``backend="auction"``,
+rounds=8), after a warm-up run at 5 % scale; it also prints each tick's
+phase times and the run's digest.
 ``--root`` profiles the port package of another checkout (for example
 an unpacked earlier commit), so two trees compare in one call.
 """
@@ -73,11 +77,39 @@ def tick_work():
     return sched.tick, lambda: {"phase_ms": sched.last_phase_ms, "route": sched.last_route}
 
 
+def sim_work():
+    """(the full_50kx10k run, its digest and per-tick phases), after a
+    warm-up run at 5 % scale."""
+    import dataclasses
+
+    from slurm_bridge_tpu_torch.sim.harness import SimHarness
+    from slurm_bridge_tpu_torch.sim.scenarios import full_50kx10k
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+
+    def harness(scale):
+        sc = dataclasses.replace(full_50kx10k(scale=scale), backend="auction",
+                                 auction_config=AuctionConfig(rounds=8, candidates=0))
+        return SimHarness(sc, device="cuda")
+
+    harness(0.05).run()
+    h = harness(1.0)
+    out = {}
+
+    def extra():
+        d = out["result"].determinism
+        return {"digest": d["digest"], "bound_total": d["bound_total"],
+                "tick_phase_ms": [{k: round(v, 1) for k, v in ph.items()}
+                                  for ph in h._tick_phases]}
+
+    return lambda: out.update(result=h.run()), extra
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=25)
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tick", action="store_true", help="profile one headline tick")
+    ap.add_argument("--sim", action="store_true", help="profile the full_50kx10k simulator run")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -85,7 +117,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    work, extra = tick_work() if args.tick else solve_work()
+    work, extra = sim_work() if args.sim else tick_work() if args.tick else solve_work()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -102,7 +134,7 @@ def main() -> None:
     syncs = {e.key: e.count for e in events if e.key in SYNC_EVENTS}
     print(f"card: {smi}; package: {os.path.abspath(args.root)}")
     print(json.dumps({
-        "work": "tick" if args.tick else "solve",
+        "work": "sim" if args.sim else "tick" if args.tick else "solve",
         "wall_ms": wall_ms,
         "device_busy_ms": device_ms,
         "device_idle_share": max(0.0, 1 - device_ms / wall_ms),

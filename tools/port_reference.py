@@ -15,10 +15,18 @@ dense config. It prints each tick's pods bound, route and tick digest
 (chip_smoke.py's ``tick_digest``, the function the port's ticks are
 digested with).
 
-chip_smoke.py holds the port's solve and tick on the card to these numbers.
+``--sim NAME``: runs the JAX package's simulator on scenario ``NAME`` at
+``--scale`` (default 1.0) with the engine pinned as chip_smoke.py pins
+it (``backend="auction"``, ``AuctionConfig(rounds=8, candidates=0)``)
+and prints its determinism ``digest``, ``final_state_digest``,
+``bound_total``, invariant violations and its tick p50 and phases.
+
+chip_smoke.py holds the port's solve, tick and simulator run on the card
+to these numbers.
 
     JAX_PLATFORMS=cpu python tools/port_reference.py --nodes 2000 --jobs 10000
     JAX_PLATFORMS=cpu python tools/port_reference.py --tick --nodes 10000 --jobs 50000
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k
 """
 
 from __future__ import annotations
@@ -76,6 +84,33 @@ def run_ticks(num_nodes: int, num_jobs: int, seed: int, ticks: int = 2) -> dict:
     return {"load_seconds": round(load_s, 3), "ticks": out}
 
 
+def run_sim(name: str, scale: float) -> dict:
+    import dataclasses
+
+    from slurm_bridge_tpu.sim.harness import run_scenario
+    from slurm_bridge_tpu.sim.scenarios import SCENARIOS
+
+    sc = dataclasses.replace(
+        SCENARIOS[name](scale=scale), backend="auction",
+        auction_config=AuctionConfig(rounds=8, candidates=0),
+    )
+    t0 = time.perf_counter()
+    r = run_scenario(sc)
+    d = r.determinism
+    return {
+        "sim": name, "scale": scale,
+        "config": 'backend="auction", AuctionConfig(rounds=8, candidates=0)',
+        "digest": d["digest"],
+        "final_state_digest": d["final_state_digest"],
+        "bound_total": d["bound_total"],
+        "invariant_violations": len(d["invariant_violations"]),
+        "shape": r.shape,
+        "cpu_seconds_wall": round(time.perf_counter() - t0, 3),
+        "tick_p50_ms": r.timing["tick_p50_ms"],
+        "phases_p50_ms": r.timing["phases_p50_ms"],
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=2000)
@@ -83,7 +118,18 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--tick", action="store_true",
                     help="run two PlacementScheduler ticks over the typed inventory")
+    ap.add_argument("--sim", default="", metavar="NAME",
+                    help="run the simulator's scenario NAME with the auction pinned")
+    ap.add_argument("--scale", type=float, default=1.0,
+                    help="the --sim scenario's scale")
     args = ap.parse_args()
+    if args.sim:
+        res = run_sim(args.sim, args.scale)
+        print(json.dumps({
+            **res,
+            "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
+        }))
+        return
     scenario = {"nodes": args.nodes, "jobs": args.jobs, "seed": args.seed, **SCENARIO}
     config = "AuctionConfig(rounds=8, candidates=0, use_pallas=False)"
     if args.tick:
