@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port: the placement solve, the
-placement tick and the bridge's job lifecycle on the simulated cluster.
+placement tick, the bridge's job lifecycle on the simulated cluster, its
+recovery from a crash and the sharded tick.
 
     python3 chip_smoke.py
 
@@ -60,9 +61,29 @@ which fails the run:
    product default (``backend="auto"``) for one tick must reach the card
    with no violation. Prints each tick's phases (arrive, store, encode,
    solve, bind, mirror, other), the tick p50 and the phase's wall time;
-7. hold the card against the JAX package's result on a reduced scenario
+7. recovery at full width: ``full_50kx10k_crash`` (10,000 nodes, 50,000
+   front-loaded jobs, 4 ticks, a bridge crash at tick 2 that reloads the
+   snapshot and WAL into a fresh store, scheduler and ``DeviceSolver``)
+   with the same pinned engine. Its ``digest``, ``final_state_digest``,
+   ``bound_total``, restarts and restored object count must equal the JAX
+   package's (:data:`CRASH_REFERENCE`), with no invariant violated and no
+   virtual node deleted; every solving tick launches the kernel 8 times
+   per solve; each kernel call of the first solve after the restart is
+   held bit-exact against its plain version on its own operands. Prints
+   ``recovery_ms``, the WAL records and snapshots and each tick's phases;
+8. the sharded tick: ``full_500kx100k`` at scale 0.1 (10,000 nodes in 16
+   partitions, 50,000 jobs, 3 ticks) with ``ShardConfig(max_nodes_per_shard
+   =8192, workers=2, device_solve=False)`` and the same pinned engine. The
+   plan must have at least two shards, every shard's solve must launch the
+   kernel 8 times, tick 0's kernel calls are held bit-exact against the
+   plain version, and the ``digest``, ``final_state_digest``,
+   ``bound_total`` and cross-shard ``reconcile_placed`` must equal the JAX
+   package's (:data:`SHARD_REFERENCE`). Prints the shard solves (rows,
+   nodes, launches, ms) and each tick's phases;
+9. hold the card against the JAX package's result on a reduced scenario
    (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
-8. print times with the card's name and power limit.
+10. print times with the card's name and power limit, and the run's wall
+    time.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` line; the last line is the run's JSON verdict.
@@ -112,6 +133,31 @@ SIM_REFERENCE = dict(
     digest="a20adeb5771b4148b7d20deaa6d260dc8c036efd5b8b00f1d581a682c7baf8d4",
     final_state_digest="23cfdb80bae8777708c3dc74dc248331b1f2714726db2ee56e520d440cc0ee38",
     bound_total=46059,
+)
+#: The JAX package's simulator on ``full_50kx10k_crash`` at full width
+#: (a bridge crash and snapshot + WAL reload at tick 2) with the auction
+#: pinned, on the CPU, from
+#: ``JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k_crash``.
+CRASH_REFERENCE = dict(
+    digest="60745be0921ea6df00c11a84fe284ce0c21c76b4acb3ebbc47f576a1d104e03d",
+    final_state_digest="fadf07b1ee032ee1c9b276455174ecfe101043aa54378f02ded9ef2109b410ca",
+    bound_total=46059,
+    restarts=1,
+    restored_objects=[100004],
+)
+#: ``full_500kx100k`` cut to this scale (10,000 nodes in 16 partitions,
+#: 50,000 jobs): the full shape takes tens of minutes on the CPU reference
+#: and on the card's host, past the run's time limit.
+SHARD_SCALE = 0.1
+#: The JAX package's simulator on ``full_500kx100k`` at :data:`SHARD_SCALE`
+#: with the auction pinned and every shard on the single-device auction,
+#: on the CPU, from ``JAX_PLATFORMS=cpu python tools/port_reference.py
+#: --sim full_500kx100k --scale 0.1``.
+SHARD_REFERENCE = dict(
+    digest="b9beb7e6a1e442bb0b948998535007d5c3ffd2cb57e6794b94ef2eb862adf406",
+    final_state_digest="d750a68037aff5a807e69858cbbb4136e22641139bf27b7cece536cbab157c61",
+    bound_total=46216,
+    reconcile_placed=0,
 )
 #: What the JAX package's default (native-routed on the CPU) run of
 #: ``full_50kx10k`` binds over its 3 ticks: printed beside the port's
@@ -557,6 +603,63 @@ def tick_phase(kern, smi: str) -> dict:
     return dict(ticks=ticks, auto=auto, errs=errs)
 
 
+def pin_auction(sc):
+    """The headline's engine pinned, as ``tools/port_reference.py --sim``
+    pins the JAX package's run: ``backend="auction"``,
+    ``AuctionConfig(rounds=8, candidates=0)``; each shard of a sharded
+    scenario on the single-device auction."""
+    import dataclasses
+
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+
+    sc = dataclasses.replace(sc, backend="auction",
+                             auction_config=AuctionConfig(rounds=ROUNDS, candidates=0))
+    if sc.sharding is not None:
+        sc = dataclasses.replace(sc, sharding=dataclasses.replace(sc.sharding, device_solve=False))
+    return sc
+
+
+def run_sim(kern, smi: str, sc, label: str, keep=()):
+    """One scenario through ``SimHarness`` on the card, counting each
+    tick's kernel launches and solves and noting which scheduler ran it
+    (a restart builds a new one); the kernel calls of the ticks in
+    ``keep`` are kept (operands and results, untimed). Prints each tick's
+    phases. Returns (result, ticks, {tick: calls}, wall seconds)."""
+    from slurm_bridge_tpu_torch.sim.harness import PHASES, SimHarness
+
+    h = SimHarness(sc, device="cuda")
+    ticks, kept = [], {}
+    real = h.run_tick
+
+    def counted(tick, **kw):
+        before, sched = kern.LAUNCHES, h.scheduler
+        solves0 = sched.solves_total
+        if tick in keep:
+            with kernel_events(keep_operands=True, timed=False) as calls:
+                phases = real(tick, **kw)
+            kept[tick] = calls
+        else:
+            phases = real(tick, **kw)
+        # a crash at this tick's boundary replaced the scheduler, whose
+        # solve count starts from zero
+        restarted = h.scheduler is not sched
+        solves = h.scheduler.solves_total - (0 if restarted else solves0)
+        ticks.append(dict(launches=kern.LAUNCHES - before, solves=solves, phases=phases,
+                          restarted=restarted))
+        return phases
+
+    h.run_tick = counted
+    t0 = time.perf_counter()
+    result = h.run()
+    wall_s = time.perf_counter() - t0
+    for i, t in enumerate(ticks):
+        ph = t["phases"]
+        log(f"  {label} tick {i}: {ph['tick']:.1f} ms ("
+            + ", ".join(f"{k} {ph.get(k, 0.0):.1f}" for k in PHASES)
+            + f" ms), solves {t['solves']}, kernel launches {t['launches']} [{smi}]")
+    return result, ticks, kept, wall_s
+
+
 def sim_phase(kern, smi: str) -> dict:
     """Phase 6: the bridge's job lifecycle on the simulated cluster at
     full width (module docstring). Returns what the kernels line and the
@@ -564,53 +667,18 @@ def sim_phase(kern, smi: str) -> dict:
     import dataclasses
 
     import slurm_bridge_tpu_torch.bridge.vnode as vnode
-    from slurm_bridge_tpu_torch.sim.harness import PHASES, SimHarness
     from slurm_bridge_tpu_torch.sim.scenarios import full_50kx10k
-    from slurm_bridge_tpu_torch.solver import AuctionConfig
     from slurm_bridge_tpu_torch.wire import coldec
 
     require(coldec.available(), "the column decoder's tables do not match the port's schema")
 
-    def run(sc, label, keep_tick0):
-        """One scenario through ``SimHarness``, counting each tick's kernel
-        launches and solves; with ``keep_tick0``, tick 0's kernel calls
-        are kept (operands and results, untimed)."""
-        h = SimHarness(sc, device="cuda")
-        ticks, tick0 = [], []
-        real = h.run_tick
-
-        def counted(tick, **kw):
-            before, solves = kern.LAUNCHES, h.scheduler.solves_total
-            if tick == 0 and keep_tick0:
-                with kernel_events(keep_operands=True, timed=False) as calls:
-                    phases = real(tick, **kw)
-                tick0.extend(calls)
-            else:
-                phases = real(tick, **kw)
-            ticks.append(dict(launches=kern.LAUNCHES - before,
-                              solves=h.scheduler.solves_total - solves, phases=phases))
-            return phases
-
-        h.run_tick = counted
-        t0 = time.perf_counter()
-        result = h.run()
-        wall_s = time.perf_counter() - t0
-        for i, t in enumerate(ticks):
-            ph = t["phases"]
-            log(f"  {label} tick {i}: {ph['tick']:.1f} ms ("
-                + ", ".join(f"{k} {ph.get(k, 0.0):.1f}" for k in PHASES)
-                + f" ms), solves {t['solves']}, kernel launches {t['launches']} [{smi}]")
-        return result, ticks, tick0, wall_s
-
     counters = (coldec.rows_counter(), coldec.fallback_counter(), vnode._submit_pool_chunks)
     before = [c.total() for c in counters]
-    pinned = dataclasses.replace(
-        full_50kx10k(scale=1.0), backend="auction",
-        auction_config=AuctionConfig(rounds=ROUNDS, candidates=0),
-    )
+    pinned = pin_auction(full_50kx10k(scale=1.0))
     require((pinned.cluster.num_nodes, pinned.workload.jobs, pinned.ticks) == (10_000, 50_000, 3),
             "full_50kx10k is not at full width")
-    result, ticks, tick0, wall_s = run(pinned, "full_50kx10k", keep_tick0=True)
+    result, ticks, kept, wall_s = run_sim(kern, smi, pinned, "full_50kx10k", keep=(0,))
+    tick0 = kept.get(0, [])
     rows, fallbacks, pool_chunks = (c.total() - b for c, b in zip(counters, before))
     d = result.determinism
     log(f"  digest {d['digest'][:16]}…, final state {d['final_state_digest'][:16]}…, "
@@ -633,8 +701,9 @@ def sim_phase(kern, smi: str) -> dict:
         p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
         errs.append(compare_recorded(kern, r, f"sim tick 0 call {j} ({n},{p})"))
 
-    auto, auto_ticks, _, auto_s = run(dataclasses.replace(full_50kx10k(scale=1.0), ticks=1),
-                                      "full_50kx10k, backend auto, 1 tick", keep_tick0=False)
+    auto, auto_ticks, _, auto_s = run_sim(kern, smi,
+                                          dataclasses.replace(full_50kx10k(scale=1.0), ticks=1),
+                                          "full_50kx10k, backend auto, 1 tick")
     auto_launches = sum(t["launches"] for t in auto_ticks)
     require(auto_launches > 0, "the auto-routed run never reached the card")
     require(auto.determinism["invariant_violations"] == [], "violations in the auto-routed run")
@@ -643,6 +712,126 @@ def sim_phase(kern, smi: str) -> dict:
         f"{auto_s:.1f} s [{smi}]")
     return dict(result=result, ticks=ticks, errs=errs, wall_s=wall_s,
                 auto_launches=auto_launches)
+
+
+def crash_phase(kern, smi: str) -> dict:
+    """Phase 7: recovery at full width (module docstring). Returns what
+    the kernels line and the summary print."""
+    from slurm_bridge_tpu_torch.sim.scenarios import full_50kx10k_crash
+
+    sc = pin_auction(full_50kx10k_crash(scale=1.0))
+    require((sc.cluster.num_nodes, sc.workload.jobs, sc.ticks) == (10_000, 50_000, 4),
+            "full_50kx10k_crash is not at full width")
+    crash_tick = sc.faults.faults[0].start_tick
+    result, ticks, kept, wall_s = run_sim(kern, smi, sc, "full_50kx10k_crash",
+                                          keep=range(crash_tick, sc.ticks))
+    d, tm = result.determinism, result.timing
+    log(f"  digest {d['digest'][:16]}…, final state {d['final_state_digest'][:16]}…, "
+        f"bound {d['bound_total']}, restarts {d['restarts']}, restored objects "
+        f"{d['restored_objects']}, violations {len(d['invariant_violations'])}, virtual-node "
+        f"deletions {d['vnode_deletions']}; recovery_ms {tm['recovery_ms']}, wal_records "
+        f"{tm['wal_records_total']}, snapshots {tm['wal_snapshots_total']}, WAL flush after "
+        f"each tick p50 {tm['wal_flush_p50_ms']:.1f} / p95 {tm['wal_flush_p95_ms']:.1f} ms "
+        f"(outside the tick clock); tick p50 "
+        f"{tm['tick_p50_ms']:.1f} ms, phase wall {wall_s:.1f} s [{smi}]")
+    require(d["invariant_violations"] == [], d["invariant_violations"][:3])
+    require(d["vnode_deletions"] == 0, f"{d['vnode_deletions']} virtual nodes deleted")
+    for key, want in CRASH_REFERENCE.items():
+        require(d[key] == want, f"full_50kx10k_crash {key} {d[key]} differs from the JAX "
+                                f"package's {want}")
+    require([t["restarted"] for t in ticks] == [i == crash_tick for i in range(sc.ticks)],
+            "the bridge did not restart exactly at the crash tick")
+    require(ticks[0]["solves"] >= 1, "tick 0 did not solve")
+    for i, t in enumerate(ticks):
+        require(t["launches"] == ROUNDS * t["solves"],
+                f"tick {i}: {t['launches']} kernel launches for {t['solves']} solves")
+    # the restarted scheduler's first solve: a fresh DeviceSolver over the
+    # reloaded store, each of its kernel calls against the plain version
+    first = next((i for i in range(crash_tick, sc.ticks) if ticks[i]["solves"]), None)
+    require(first is not None, "no solve after the restart")
+    calls = kept[first][:ROUNDS]
+    require(len(calls) == ROUNDS, f"{len(calls)} kernel calls in the first post-restart solve")
+    errs = []
+    for j, r in enumerate(calls):
+        p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
+        errs.append(compare_recorded(kern, r, f"post-restart tick {first} call {j} ({n},{p})"))
+    return dict(result=result, ticks=ticks, errs=errs, wall_s=wall_s, first=first)
+
+
+def shard_phase(kern, smi: str) -> dict:
+    """Phase 8: the sharded tick (module docstring). Returns what the
+    kernels line and the summary print."""
+    import slurm_bridge_tpu_torch.solver.session as session
+    from slurm_bridge_tpu_torch.sim.scenarios import full_500kx100k
+
+    sc = pin_auction(full_500kx100k(scale=SHARD_SCALE))
+    require((sc.cluster.num_nodes, sc.cluster.num_partitions, sc.workload.jobs, sc.ticks)
+            == (10_000, 16, 50_000, 3), "full_500kx100k is not at scale 0.1")
+    require((sc.sharding.max_nodes_per_shard, sc.sharding.workers) == (8192, 2), sc.sharding)
+    solves = []
+    real_solve = session.DeviceSolver.solve
+
+    def timed_solve(self, batch, *a, **kw):
+        # every shard's solve, serialised under the executor's device lock
+        before, t0 = kern.LAUNCHES, time.perf_counter()
+        out = real_solve(self, batch, *a, **kw)
+        solves.append(dict(rows=batch.num_shards, nodes=self.snapshot.num_nodes,
+                           launches=kern.LAUNCHES - before,
+                           ms=(time.perf_counter() - t0) * 1e3))
+        return out
+
+    session.DeviceSolver.solve = timed_solve
+    try:
+        result, ticks, kept, wall_s = run_sim(kern, smi, sc, "full_500kx100k(0.1)", keep=(0,))
+    finally:
+        session.DeviceSolver.solve = real_solve
+    # the main path's launches, read before the timing below adds its own
+    launches = kern.LAUNCHES
+    d, tm = result.determinism, result.timing
+    shard = d["shard"]
+    for i, sv in enumerate(solves):
+        log(f"  shard solve {i}: {sv['rows']} rows x {sv['nodes']} nodes, kernel launches "
+            f"{sv['launches']}, {sv['ms']:.1f} ms [{smi}]")
+    log(f"  digest {d['digest'][:16]}…, final state {d['final_state_digest'][:16]}…, "
+        f"bound {d['bound_total']}, shards {shard['shard_count']}, reconcile placed "
+        f"{shard['reconcile_placed']}, violations {len(d['invariant_violations'])}; tick p50 "
+        f"{tm['tick_p50_ms']:.1f} ms, phase wall {wall_s:.1f} s [{smi}]")
+    require(d["invariant_violations"] == [], d["invariant_violations"][:3])
+    require(shard["shard_count"] >= 2, f"the plan has {shard['shard_count']} shard(s)")
+    for key, want in SHARD_REFERENCE.items():
+        got = shard[key] if key in shard else d[key]
+        require(got == want, f"full_500kx100k(0.1) {key} {got} differs from the JAX package's {want}")
+    require(len(solves) >= 2, f"{len(solves)} shard solves")
+    require(all(sv["launches"] == ROUNDS for sv in solves),
+            f"shard solves launched {[sv['launches'] for sv in solves]} kernels")
+    require(sum(t["launches"] for t in ticks) == ROUNDS * len(solves),
+            "kernel launches outside the shard solves")
+    calls = kept[0]
+    require(calls and len(calls) == ticks[0]["launches"] and len(calls) % ROUNDS == 0,
+            f"{len(calls)} kernel calls kept on tick 0 of {ticks[0]['launches']} launches")
+    errs = []
+    for j, r in enumerate(calls):
+        p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
+        errs.append(compare_recorded(kern, r, f"shard tick 0 call {j} ({n},{p})"))
+    # each of those calls timed again on its own operands and live mask
+    # (gated CUDA events, after the counts were read), beside the cells
+    # its live rows need: per shard the kernel should scale with them
+    timed = []
+    for j, r in enumerate(calls):
+        kw = dict(r["kw"], live=r["live"])
+        ms = cuda_ms(lambda: kern.bid_argmax(*r["args"], r["salt"], **kw), 5)
+        cells = needed_cells(r["args"][1].cpu().numpy(), r["args"][5].cpu().numpy(),
+                             r["live"].cpu().numpy())
+        timed.append(dict(cells=cells, ms=ms))
+        log(f"  shard tick 0 call {j}: {r['kw']['num_nodes']} nodes, live rows "
+            f"{int(r['live'].sum())}, needed cells {cells}, kernel {ms:.4f} ms [{smi}]")
+    for k in range(0, len(timed), ROUNDS):
+        solve = timed[k:k + ROUNDS]
+        cells, ms = sum(c["cells"] for c in solve), sum(c["ms"] for c in solve)
+        log(f"  shard solve {k // ROUNDS} of tick 0: {cells} needed cells, kernel {ms:.4f} ms "
+            f"({ms * 1e9 / max(cells, 1):.2f} ps per cell) [{smi}]")
+    return dict(result=result, ticks=ticks, solves=solves, errs=errs, wall_s=wall_s,
+                timed=timed, launches=launches)
 
 
 def main() -> int:
@@ -822,7 +1011,25 @@ def main() -> int:
     require(sim_launches > 0, "no kernel launch in the simulator phase")
     errs += sim["errs"]
 
-    # 7. the JAX package's result on the reduced scenario
+    # 7. recovery at full width: a bridge crash and snapshot + WAL reload
+    log("[7] main path: the simulator's full_50kx10k_crash (restart at tick 2) through the "
+        "port's full bridge loop")
+    kern.LAUNCHES = 0
+    crash = crash_phase(kern, smi)
+    crash_launches = kern.LAUNCHES
+    require(crash_launches > 0, "no kernel launch in the recovery phase")
+    errs += crash["errs"]
+
+    # 8. the sharded tick: every shard's solve on the kernel
+    log(f"[8] main path: the simulator's full_500kx100k at scale {SHARD_SCALE} with the shard "
+        "executor's fan-out")
+    kern.LAUNCHES = 0
+    shard = shard_phase(kern, smi)
+    shard_launches = shard["launches"]
+    require(shard_launches > 0, "no kernel launch in the sharded phase")
+    errs += shard["errs"]
+
+    # 9. the JAX package's result on the reduced scenario
     ref_snap, ref_batch = random_scenario(
         REFERENCE["nodes"], REFERENCE["jobs"], seed=42, load=0.7,
         gpu_fraction=0.15, gang_fraction=0.05,
@@ -833,24 +1040,31 @@ def main() -> int:
     ref_jobs = len(ref_pl.by_job(ref_batch))
     rel = abs(ref_jobs - REFERENCE["placed_jobs"]) / REFERENCE["placed_jobs"]
     match = digest(ref_pl.node_of) == REFERENCE["node_of_sha256"]
-    log(f"[7] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
+    log(f"[9] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
         f"vs JAX {REFERENCE['placed_jobs']} (rel {rel:.5f}); node_of digest matches JAX: {match}")
     require(rel <= 0.005, rel)
 
-    # 8. times
+    # 10. times
     p50 = statistics.median(wall_ms)
-    log(f"[8] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
+    log(f"[10] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
         f"(min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); kernel {kernel_ms:.4f} ms/launch "
         f"(bound {bound_ms:.4f}, ceiling {ceiling_ms:.4f}), {ms_per_solve:.4f} ms per solve; "
         f"total run {time.perf_counter() - t_start:.0f} s")
     for i, t in enumerate(tick["ticks"]):
-        log(f"[8] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
+        log(f"[10] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in t["phase_ms"].items())
             + f"; {t['launches']} kernel launches")
-    log(f"[8] [{smi}] full_50kx10k: tick p50 {sim['result'].timing['tick_p50_ms']:.1f} ms, "
-        + ", ".join(f"{k} {v:.1f} ms" for k, v in sim["result"].timing["phases_p50_ms"].items())
-        + f" (p50 over {len(sim['ticks'])} ticks); {sim_launches} kernel launches; "
-        f"phase wall {sim['wall_s']:.1f} s")
+    for label, run, launches in (("full_50kx10k", sim, sim_launches),
+                                 ("full_50kx10k_crash", crash, crash_launches),
+                                 (f"full_500kx100k({SHARD_SCALE})", shard, shard_launches)):
+        tm = run["result"].timing
+        log(f"[10] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
+            + f" (p50 over {len(run['ticks'])} ticks); {launches} kernel launches; "
+            f"phase wall {run['wall_s']:.1f} s")
+    log(f"[10] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; shard solves "
+        f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms; "
+        f"total run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "bid_argmax",
@@ -867,7 +1081,9 @@ def main() -> int:
         "ms_per_solve": ms_per_solve,
         "ceiling_ms": ceiling_ms,
         "launches_per_tick": [t["launches"] for t in tick["ticks"]]
-        + [t["launches"] for t in sim["ticks"]],
+        + [t["launches"] for t in sim["ticks"]] + [t["launches"] for t in crash["ticks"]]
+        + [t["launches"] for t in shard["ticks"]],
+        "launches_per_shard_solve": [sv["launches"] for sv in shard["solves"]],
         "tick_kernel_ms": tick["auto"]["kernel_ms"],
     }]}))
     print(smi)

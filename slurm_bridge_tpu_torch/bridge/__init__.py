@@ -4,8 +4,12 @@ store, and the scheduler that binds pending sizecar pods to virtual nodes.
 ``ObjectStore`` stands in for the API server (optimistic concurrency,
 watches, columnar hot state); ``PlacementScheduler`` takes one batched
 inventory snapshot per tick and solves the whole pending queue with the
-port's solver. The operator, virtual-node providers, configurator and the
-``Bridge`` runtime that drive it are not ported yet.
+port's solver. The operator, virtual-node providers and configurator
+(``bridge.operator``, ``bridge.vnode``, ``bridge.configurator``), the
+store's snapshot and WAL (``bridge.persist``) and leader election
+(``bridge.leader``) are their own modules; the ``Bridge`` runtime that
+wires them to a live agent needs the gRPC transport and is not ported
+yet (ROADMAP Queue 1 item 4).
 """
 
 from slurm_bridge_tpu_torch.bridge.objects import (

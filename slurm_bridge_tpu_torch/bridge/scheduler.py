@@ -152,11 +152,6 @@ class PlacementScheduler:
         explain_target: str = "",
         device=None,
     ):
-        if shard is not None:
-            raise NotImplementedError(
-                "sharded placement (shard=) is not ported yet: ROADMAP "
-                "Queue 1 item 5"
-            )
         if solver_endpoint:
             raise NotImplementedError(
                 "the remote solver sidecar (solver_endpoint=) is not ported "
@@ -220,6 +215,7 @@ class PlacementScheduler:
                     backend=backend,
                     auction_config=auction_config,
                     bucket=bucket,
+                    device=device,
                 )
             )
             if solver_endpoint:

@@ -1,13 +1,27 @@
-"""Sharded placement — the partition/island shard layout.
+"""Sharded placement — partition/island fan-out for the 10×-scale tick.
 
-The port carries the planner (:mod:`~slurm_bridge_tpu_torch.shard.planner`):
-:class:`ShardConfig`, which a simulator :class:`Scenario` may hold, and
-the layout it builds. The executor that fans a tick out over shards and
-the cross-shard gang reconciliation are not ported yet (ROADMAP Queue 1
-item 5): ``PlacementScheduler(shard=...)`` and a sharded scenario raise
-``NotImplementedError``.
+Public surface:
+
+- :class:`ShardConfig` — declarative knobs a Scenario (or the bridge
+  CLI) carries; attach to :class:`~slurm_bridge_tpu_torch.bridge.scheduler.
+  PlacementScheduler` via ``shard=``. ``shard=None`` (the default) is
+  the monolithic tick byte-for-byte.
+- :class:`ShardExecutor` — per-shard encode+solve fan-out + merge.
+- :func:`build_plan` / :class:`ShardPlan` — the partition/island shard
+  layout (planner.py).
+- :func:`reconcile_gangs` — the cross-shard all-or-nothing second
+  chance for gangs no single shard could place (reconcile.py).
+
+See docs/sharding.md for the full design walkthrough.
+
+The port carries all of it but two routes: the fleet's remote shard
+solve (ROADMAP Queue 1 item 7, with the solver sidecar) and the
+multi-device sweep a big shard would take on two or more cards (item 8).
+Both raise ``NotImplementedError``; each shard's auction runs on the
+executor's ``device``.
 """
 
+from slurm_bridge_tpu_torch.shard.executor import ShardExecutor
 from slurm_bridge_tpu_torch.shard.planner import (
     Island,
     Shard,
@@ -16,12 +30,15 @@ from slurm_bridge_tpu_torch.shard.planner import (
     build_plan,
     route_jobs,
 )
+from slurm_bridge_tpu_torch.shard.reconcile import reconcile_gangs
 
 __all__ = [
     "Island",
     "Shard",
     "ShardConfig",
+    "ShardExecutor",
     "ShardPlan",
     "build_plan",
+    "reconcile_gangs",
     "route_jobs",
 ]

@@ -43,6 +43,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from slurm_bridge_tpu_torch.bridge.configurator import Configurator
+from slurm_bridge_tpu_torch.bridge.leader import LeaderElector
 from slurm_bridge_tpu_torch.bridge.freeze import FrozenDict
 from slurm_bridge_tpu_torch.bridge.objects import (
     BridgeJob,
@@ -73,6 +74,7 @@ def _freeze_scalar_spec(spec):
     spec.__dict__[FROZEN_FLAG] = True
     return spec
 from slurm_bridge_tpu_torch.bridge.operator import BridgeOperator
+from slurm_bridge_tpu_torch.bridge.persist import StorePersistence, load_into
 from slurm_bridge_tpu_torch.bridge.scheduler import PlacementScheduler
 from slurm_bridge_tpu_torch.bridge.store import ObjectStore
 from slurm_bridge_tpu_torch.core.types import JobStatus
@@ -80,6 +82,7 @@ from slurm_bridge_tpu_torch.obs.events import EventRecorder
 from slurm_bridge_tpu_torch.obs.flight import FlightRecorder
 from slurm_bridge_tpu_torch.obs.metrics import REGISTRY
 from slurm_bridge_tpu_torch.obs.tracing import TRACER, with_current_span
+from slurm_bridge_tpu_torch.agent.journal import AgentJournal
 from slurm_bridge_tpu_torch.parallel import colpool
 from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
 from slurm_bridge_tpu_torch.policy.classes import CLASS_LABEL, TENANT_LABEL
@@ -315,23 +318,10 @@ def _quiet_event_logs() -> None:
 
 
 def _refuse_unported(scenario: Scenario) -> None:
-    """Raise for a scenario that needs a part of the bridge the port does
-    not carry yet: persistence, leader election and the agent journal
-    (ROADMAP Queue 1 item 4, the durability slice), sharded placement
-    (item 5) or the fleet (item 7)."""
+    """Raise for a scenario that needs the fleet (ROADMAP Queue 1 item
+    7): its sidecars, the remote shard solve and the owner-kill chaos.
+    Every other scenario runs."""
     kinds = {f.kind for f in scenario.faults.faults}
-    if scenario.persistence or kinds & {
-        "crash_restart", "leader_failover", "agent_crash",
-    }:
-        raise NotImplementedError(
-            f"{scenario.name}: bridge persistence, leader election and the "
-            "agent journal are not ported yet: ROADMAP Queue 1 item 4"
-        )
-    if scenario.sharding is not None:
-        raise NotImplementedError(
-            f"{scenario.name}: sharded placement is not ported yet: ROADMAP "
-            "Queue 1 item 5"
-        )
     if scenario.fleet is not None or "kill_replica" in kinds:
         raise NotImplementedError(
             f"{scenario.name}: the fleet runtime is not ported yet: ROADMAP "
@@ -568,8 +558,6 @@ class SimHarness:
             # fsync off, like the bridge WAL: sim durability is
             # within-process; the journal's every-transition appends are
             # driven purely by virtual events, so replay is deterministic
-            from slurm_bridge_tpu_torch.agent.journal import AgentJournal
-
             self.agent_journal = AgentJournal(
                 os.path.join(self._state_dir, "agent-journal.json"),
                 fsync=False,
@@ -580,8 +568,6 @@ class SimHarness:
             # 8 virtual seconds: outlives one 5 s tick gap, expires
             # during the second — expiry takeover exercises a real
             # leaderless window, graceful handover is immediate
-            from slurm_bridge_tpu_torch.bridge.leader import LeaderElector
-
             self.elector = LeaderElector(
                 lease_path,
                 identity="bridge-0",
@@ -626,8 +612,6 @@ class SimHarness:
         when the scenario carries ``wal_fsync_ms`` (the fsync-realism
         bench arm)."""
         fsync_ms = self.scenario.wal_fsync_ms
-        from slurm_bridge_tpu_torch.bridge.persist import StorePersistence
-
         return StorePersistence(
             self.store,
             self.state_file,
@@ -754,8 +738,6 @@ class SimHarness:
         and jobs outlive the controller, the JIRIAF operating model."""
         t0 = time.perf_counter()
         self.store = ObjectStore()
-        from slurm_bridge_tpu_torch.bridge.persist import load_into
-
         restored = load_into(self.store, self.state_file)
         if self.persistence is not None:
             self._wal_records_prior += self.persistence.wal_records_total

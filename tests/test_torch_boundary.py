@@ -110,14 +110,31 @@ LIFECYCLE_MODULES = [
 ]
 
 
+#: durability and the sharded tick: the WAL, atomic files, the store's
+#: persistence, leader election, the agent journal and Slurm CLI driver,
+#: the shard executor and the cross-shard reconcile pass
+DURABILITY_MODULES = [
+    "slurm_bridge_tpu_torch.utils",
+    "slurm_bridge_tpu_torch.utils.wal",
+    "slurm_bridge_tpu_torch.utils.files",
+    "slurm_bridge_tpu_torch.bridge.persist",
+    "slurm_bridge_tpu_torch.bridge.leader",
+    "slurm_bridge_tpu_torch.agent",
+    "slurm_bridge_tpu_torch.agent.journal",
+    "slurm_bridge_tpu_torch.agent.cli",
+    "slurm_bridge_tpu_torch.shard.reconcile",
+    "slurm_bridge_tpu_torch.shard.executor",
+]
+
+
 def _foreign_after_import(mod: str) -> list[str]:
-    """Modules of JAX, of the JAX package, of grpc or of protobuf in
-    ``sys.modules`` after a fresh interpreter imports ``mod``."""
+    """Modules of JAX, of the JAX package, of grpc, of protobuf or of yaml
+    in ``sys.modules`` after a fresh interpreter imports ``mod``."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({mod!r})\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
-        "       ('jax', 'slurm_bridge_tpu', 'grpc')\n"
+        "       ('jax', 'slurm_bridge_tpu', 'grpc', 'yaml')\n"
         "       or k == 'google.protobuf' or k.startswith('google.protobuf.')]\n"
         "print(json.dumps(bad))\n"
     )
@@ -156,6 +173,17 @@ def test_lifecycle_modules_are_ported():
 def test_lifecycle_imports_no_grpc_or_protobuf(mod):
     """The simulator, the operator and the provider run on the card's
     machine, which has neither grpc nor protobuf."""
+    assert _foreign_after_import(mod) == []
+
+
+def test_durability_modules_are_ported():
+    assert set(DURABILITY_MODULES) <= set(_port_modules())
+
+
+@pytest.mark.parametrize("mod", DURABILITY_MODULES)
+def test_durability_imports_no_jax_grpc_protobuf_or_yaml(mod):
+    """Each imports on its own on the card's machine, which has neither
+    grpc, protobuf nor yaml."""
     assert _foreign_after_import(mod) == []
 
 

@@ -48,14 +48,9 @@ ALLOWED = {
          "        except RpcError as e:\n            log.warning(\"remote Place"),
         ("            except grpc.RpcError as e:\n                log.warning(\n",
          "            except RpcError as e:\n                log.warning(\n"),
-        # the device keyword; shard= and solver_endpoint= not ported yet
+        # the device keyword; solver_endpoint= not ported yet
         ('        explain_target: str = "",\n    ):\n',
          '        explain_target: str = "",\n        device=None,\n    ):\n'
-         "        if shard is not None:\n"
-         "            raise NotImplementedError(\n"
-         '                "sharded placement (shard=) is not ported yet: ROADMAP "\n'
-         '                "Queue 1 item 5"\n'
-         "            )\n"
          "        if solver_endpoint:\n"
          "            raise NotImplementedError(\n"
          '                "the remote solver sidecar (solver_endpoint=) is not ported "\n'
@@ -94,6 +89,10 @@ ALLOWED = {
          "                self._solver = DeviceSolver(\n"
          "                    snapshot, self.auction_config, device=self.device\n"
          "                )\n"),
+        # each shard's device auction runs on the scheduler's device
+        ("                    bucket=bucket,\n                )\n            )\n",
+         "                    bucket=bucket,\n                    device=device,\n"
+         "                )\n            )\n"),
     ],
     "solver/encoder.py": [],
     "solver/native/greedy.cpp": [],
@@ -206,23 +205,6 @@ ALLOWED = {
     ],
     "sim/harness.py": [
         ("import grpc\nimport numpy as np\n", "import numpy as np\n"),
-        # persistence, leader election and the agent journal: imported
-        # where used, and refused up front (_refuse_unported)
-        ("from slurm_bridge_tpu_torch.bridge.leader import LeaderElector\n", ""),
-        ("from slurm_bridge_tpu_torch.bridge.persist import StorePersistence, load_into\n", ""),
-        ("from slurm_bridge_tpu_torch.agent.journal import AgentJournal\n", ""),
-        ("        return StorePersistence(\n",
-         "        from slurm_bridge_tpu_torch.bridge.persist import StorePersistence\n\n"
-         "        return StorePersistence(\n"),
-        ("        restored = load_into(self.store, self.state_file)\n",
-         "        from slurm_bridge_tpu_torch.bridge.persist import load_into\n\n"
-         "        restored = load_into(self.store, self.state_file)\n"),
-        ("            self.agent_journal = AgentJournal(\n",
-         "            from slurm_bridge_tpu_torch.agent.journal import AgentJournal\n\n"
-         "            self.agent_journal = AgentJournal(\n"),
-        ("            self.elector = LeaderElector(\n",
-         "            from slurm_bridge_tpu_torch.bridge.leader import LeaderElector\n\n"
-         "            self.elector = LeaderElector(\n"),
         ("from slurm_bridge_tpu_torch.parallel import colpool\n",
          "from slurm_bridge_tpu_torch.parallel import colpool\n"
          "from slurm_bridge_tpu_torch.parallel.backend import ensure_backend\n"),
@@ -232,23 +214,10 @@ ALLOWED = {
         ("grpc.RpcError", "RpcError", 7),
         ("\nclass SimHarness:\n",
          "\ndef _refuse_unported(scenario: Scenario) -> None:\n"
-         '    """Raise for a scenario that needs a part of the bridge the port does\n'
-         "    not carry yet: persistence, leader election and the agent journal\n"
-         "    (ROADMAP Queue 1 item 4, the durability slice), sharded placement\n"
-         '    (item 5) or the fleet (item 7)."""\n'
+         '    """Raise for a scenario that needs the fleet (ROADMAP Queue 1 item\n'
+         "    7): its sidecars, the remote shard solve and the owner-kill chaos.\n"
+         '    Every other scenario runs."""\n'
          "    kinds = {f.kind for f in scenario.faults.faults}\n"
-         "    if scenario.persistence or kinds & {\n"
-         '        "crash_restart", "leader_failover", "agent_crash",\n'
-         "    }:\n"
-         "        raise NotImplementedError(\n"
-         '            f"{scenario.name}: bridge persistence, leader election and the "\n'
-         '            "agent journal are not ported yet: ROADMAP Queue 1 item 4"\n'
-         "        )\n"
-         "    if scenario.sharding is not None:\n"
-         "        raise NotImplementedError(\n"
-         '            f"{scenario.name}: sharded placement is not ported yet: ROADMAP "\n'
-         '            "Queue 1 item 5"\n'
-         "        )\n"
          '    if scenario.fleet is not None or "kill_replica" in kinds:\n'
          "        raise NotImplementedError(\n"
          '            f"{scenario.name}: the fleet runtime is not ported yet: ROADMAP "\n'
@@ -307,6 +276,127 @@ ALLOWED = {
     ],
     "sim/__init__.py": [],
     "sim/__main__.py": [],
+    # ---- durability and the sharded tick ----
+    "utils/wal.py": [],
+    "utils/files.py": [],
+    "bridge/persist.py": [],
+    "bridge/leader.py": [],
+    "agent/journal.py": [],
+    "agent/cli.py": [],
+    "shard/reconcile.py": [],
+    # what the port does not carry yet
+    "shard/__init__.py": [
+        ("See docs/sharding.md for the full design walkthrough.\n",
+         "See docs/sharding.md for the full design walkthrough.\n\n"
+         "The port carries all of it but two routes: the fleet's remote shard\n"
+         "solve (ROADMAP Queue 1 item 7, with the solver sidecar) and the\n"
+         "multi-device sweep a big shard would take on two or more cards (item 8).\n"
+         "Both raise ``NotImplementedError``; each shard's auction runs on the\n"
+         "executor's ``device``.\n"),
+    ],
+    # each shard's auction runs on the executor's device; the multi-device
+    # sweep and the fleet's remote solve are not ported, and a device
+    # failure propagates (no CPU fallback)
+    "shard/executor.py": [
+        ("   and PROMOTES big shards to the multi-device shard_map sweep\n"
+         "   (``solver/sharded.py`` — the MULTICHIP_r05 dp4×mp2 parity dryrun,\n"
+         "   now on the routed path) with a CPU fallback to the native packer if\n"
+         "   the device solve is unavailable or raises;\n",
+         "   and runs the device auction on the executor's ``device`` — the card,\n"
+         "   unless asked for the CPU. Big shards would be promoted to the\n"
+         "   multi-device sweep, which is not ported (ROADMAP Queue 1 item 8): with\n"
+         "   fewer than two cards they stay on the single-device auction, and a\n"
+         "   device failure propagates instead of turning into a CPU solve;\n"),
+        ("        bucket: int = 1024,\n", "        bucket: int = 1024,\n        device=None,\n"),
+        ("        self.bucket = bucket\n",
+         "        self.bucket = bucket\n"
+         "        #: where each shard's device auction runs: None is the card (or\n"
+         '        #: SBT_BACKEND=cpu), "cpu" the host (parallel/backend.py)\n'
+         "        self.device = device\n"),
+        ("        return remote.try_solve(sid, engine, policy, snapshot, batch, incumbent)\n",
+         "        raise NotImplementedError(\n"
+         '            "the fleet\'s remote shard solve is not ported yet: ROADMAP "\n'
+         '            "Queue 1 item 7"\n'
+         "        )\n"),
+        ("        # collectives rides the shard_map sweep whenever ≥2 devices\n"
+         "        # exist (MULTICHIP_r05: dp4×mp2 parity ≥90% vs single-device);\n"
+         "        # anything that goes wrong degrades to the native packer — the\n"
+         "        # CPU fallback that keeps a device-less (or wedged-chip) host\n"
+         "        # solving every tick\n",
+         "        # collectives would ride the multi-device sweep whenever ≥2 cards\n"
+         "        # exist; with fewer it stays on the single-device auction below\n"),
+        ('        if self.backend == "auto":\n            route = choose_path(\n'
+         "                batch.num_shards,\n                snapshot.num_nodes,\n",
+         '        if self.backend == "auto":\n'
+         "            from slurm_bridge_tpu_torch.parallel.backend import ensure_backend\n\n"
+         "            route = choose_path(\n"
+         "                batch.num_shards,\n                snapshot.num_nodes,\n"
+         "                backend_name=ensure_backend(self.device),\n"),
+        ("                st.solver = DeviceSolver(snapshot, self.auction_config)\n",
+         "                st.solver = DeviceSolver(\n"
+         "                    snapshot, self.auction_config, device=self.device\n"
+         "                )\n"),
+        ('''        """The shard_map sweep, or None (→ native fallback). Import and
+        device probing both live inside the guard: a host without JAX
+        devices must not pay (or crash on) backend init per tick."""
+        try:
+            from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
+
+            ensure_backend()
+            import jax
+
+            if len(jax.devices()) < 2:
+                return None
+            from slurm_bridge_tpu_torch.solver.sharded import sharded_place
+
+            p_real = batch.num_shards
+            inc = incumbent
+            if self.bucket:
+                batch = pad_batch(batch, self.bucket)
+                if batch.num_shards != p_real:
+                    inc = np.concatenate(
+                        [inc, np.full(batch.num_shards - p_real, -1, np.int32)]
+                    )
+            with self._device_lock:
+                placement = sharded_place(
+                    snapshot, batch, self.auction_config, incumbent=inc
+                )
+            if placement.node_of.shape[0] != p_real:
+                placement = Placement(
+                    node_of=placement.node_of[:p_real],
+                    placed=placement.placed[:p_real],
+                    free_after=placement.free_after,
+                )
+            return placement
+        except Exception:
+            # wedged chip / missing mesh / OOM: the tick must still
+            # solve — log once per occurrence and take the CPU path
+            log.warning(
+                "device shard_map solve failed%s; falling back to the "
+                "native packer for this shard",
+                " (forced)" if forced else "",
+                exc_info=True,
+            )
+            return None
+''',
+         '''        """The multi-device sweep, or None (→ the single-device auction)
+        when the process has fewer than two cards. The sweep itself is not
+        ported (ROADMAP Queue 1 item 8), and nothing here turns a device
+        failure into a CPU solve."""
+        import torch
+
+        from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
+
+        backend = ensure_backend(self.device)
+        n_devices = torch.cuda.device_count() if backend == "cuda" else 1
+        if n_devices < 2:
+            return None
+        raise NotImplementedError(
+            "the multi-device sharded auction is not ported yet: ROADMAP "
+            "Queue 1 item 8"
+        )
+'''),
+    ],
 }
 
 

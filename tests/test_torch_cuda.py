@@ -386,3 +386,71 @@ def test_forked_pool_worker_answers_after_the_parent_initialized_cuda(cuda):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,scale", [("sharded_smoke", 0.1), ("sharded_gang_split", 0.5)])
+def test_sharded_sim_on_card_equals_cpu(cuda, name, scale):
+    """The sharded tick with the auction pinned (several shards; the gang
+    split places gangs through the cross-shard reconcile pass): every
+    shard's solve launches the kernel on the card, and the run ends with
+    the CPU's digests and shard statistics."""
+    import dataclasses
+
+    from slurm_bridge_tpu_torch.sim import run_scenario
+    from slurm_bridge_tpu_torch.sim.scenarios import SCENARIOS
+
+    sc = SCENARIOS[name](scale=scale)
+    sc = dataclasses.replace(
+        sc, backend="auction", auction_config=AuctionConfig(rounds=8, candidates=0),
+        sharding=dataclasses.replace(sc.sharding, device_solve=False),
+    )
+    before = kern.LAUNCHES
+    card = run_scenario(sc, device="cuda")
+    assert kern.LAUNCHES > before
+    cpu = run_scenario(sc, device="cpu")
+    assert card.determinism["shard"]["shard_count"] >= 2
+    for key in ("digest", "final_state_digest", "bound_total", "shard"):
+        assert card.determinism[key] == cpu.determinism[key], key
+    assert card.determinism["invariant_violations"] == []
+    if name == "sharded_gang_split":
+        assert card.determinism["shard"]["reconcile_placed"] >= 1
+
+
+@pytest.mark.cuda
+def test_crash_restart_on_card_equals_cpu(cuda):
+    """A bridge crash and snapshot + WAL reload with the auction pinned:
+    the restarted scheduler's fresh solver launches the kernel, and the
+    run ends with the CPU's digests."""
+    import dataclasses
+
+    from slurm_bridge_tpu_torch.sim import run_scenario
+    from slurm_bridge_tpu_torch.sim.scenarios import full_50kx10k_crash
+
+    sc = dataclasses.replace(
+        full_50kx10k_crash(scale=0.05), backend="auction",
+        auction_config=AuctionConfig(rounds=8, candidates=0),
+    )
+    card = run_scenario(sc, device="cuda")
+    cpu = run_scenario(sc, device="cpu")
+    assert card.determinism["restarts"] == 1
+    for key in ("digest", "final_state_digest", "bound_total", "restored_objects"):
+        assert card.determinism[key] == cpu.determinism[key], key
+
+
+@pytest.mark.cuda
+def test_update_snapshot_rebuilds_the_node_order(cuda):
+    """A shard whose partition layout changes gets the new layout's node
+    order: a stale one would score rows against the wrong partitions."""
+    snap_a, batch = random_scenario(600, 1500, seed=5, load=0.6)
+    snap_b = random_scenario(600, 1500, seed=5, load=0.6)[0]
+    snap_b.partition_of = np.roll(snap_b.partition_of, 37)
+    solver = DeviceSolver(snap_a, AuctionConfig(rounds=4, candidates=0), device="cuda")
+    a_nodes = [t.clone() for t in solver._dev_nodes]
+    solver.update_snapshot(snap_b)
+    want = kern.node_order(snap_b.partition_of, cuda)
+    assert all(torch.equal(x, y) for x, y in zip(solver._dev_nodes, want))
+    assert not all(torch.equal(x, y) for x, y in zip(a_nodes, want))
+    got = solver.solve(batch)
+    ref = DeviceSolver(snap_b, AuctionConfig(rounds=4, candidates=0), device="cpu").solve(batch)
+    np.testing.assert_array_equal(got.node_of, ref.node_of)

@@ -289,14 +289,16 @@ def test_no_card_no_cpu_solve(backend, monkeypatch):
 
 
 def test_unported_routes_raise(monkeypatch):
-    """shard=, solver_endpoint= and the multi-device sharded auction are
-    not ported: each raises NotImplementedError, and the sharded route
-    never falls through to the single-device solve."""
+    """solver_endpoint= and the multi-device sharded auction are not
+    ported: each raises NotImplementedError, and the sharded route never
+    falls through to the single-device solve. shard= is ported: it builds
+    the port's executor on the scheduler's device."""
     from slurm_bridge_tpu_torch.bridge.scheduler import PlacementScheduler
     from slurm_bridge_tpu_torch.bridge.store import ObjectStore
+    from slurm_bridge_tpu_torch.shard import ShardConfig, ShardExecutor
 
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PlacementScheduler(ObjectStore(), None, shard=object(), device="cpu")
+    sharded = PlacementScheduler(ObjectStore(), None, shard=ShardConfig(), device="cpu")
+    assert isinstance(sharded.shard, ShardExecutor) and sharded.shard.device == "cpu"
     with pytest.raises(NotImplementedError, match="item 7"):
         PlacementScheduler(ObjectStore(), None, solver_endpoint="unix:///x", device="cpu")
 

@@ -7,8 +7,8 @@ scheduler, simulated agent, fault client — on the CPU. The determinism
 the ``final_state_digest`` (bindings, placements and lifecycle on both
 sides of the wire) must be equal. No tolerance. The port also reproduces
 the JAX package's pinned ``tests/fixtures/*_off_baseline.json`` digests,
-run the way the JAX package's tests run them, and refuses the scenarios
-whose modules it does not carry yet.
+run the way the JAX package's tests run them, and refuses the two fleet
+scenarios, whose runtime it does not carry yet.
 
 Every test resets both packages' forked worker pools when it ends.
 """
@@ -73,9 +73,20 @@ def _pinned_auction(sc, auction):
     )
 
 
+def _single_device_shards(sc):
+    """Each shard on the single-device engine: the JAX package's tests run
+    on eight virtual CPU devices, where a big shard would take its
+    multi-device sweep, which the port does not carry."""
+    if sc.sharding is None:
+        return sc
+    return dataclasses.replace(
+        sc, sharding=dataclasses.replace(sc.sharding, device_solve=False)
+    )
+
+
 def _both(name: str, scale: float, *, pin_auction: bool = False, **replace):
-    jsc = jax_scenarios.SCENARIOS[name](scale=scale)
-    psc = port_scenarios.SCENARIOS[name](scale=scale)
+    jsc = _single_device_shards(jax_scenarios.SCENARIOS[name](scale=scale))
+    psc = _single_device_shards(port_scenarios.SCENARIOS[name](scale=scale))
     if pin_auction:
         jsc, psc = _pinned_auction(jsc, jax_auction), _pinned_auction(psc, port_auction)
     if replace:
@@ -101,6 +112,20 @@ DIGEST_CASES = [
     ("full_50kx10k", 0.02, False),
     ("full_50kx10k", 0.02, True),  # chip_smoke.py's configuration
     ("full_50kx10k_steady", 0.02, False),
+    # persistence, leader election and the agent journal
+    ("crash_restart", 0.05, False),
+    ("leader_failover", 0.05, False),
+    ("agent_crash", 0.05, False),
+    ("chaos_dual_crash", 0.05, False),
+    ("chaos_crash_rpc_flap", 0.05, False),
+    ("chaos_crash_into_vanished_partition", 0.05, False),
+    ("full_50kx10k_crash", 0.02, True),  # chip_smoke.py's configuration
+    # the sharded tick: the executor, its fan-out and the reconcile pass
+    ("sharded_smoke", 0.05, False),
+    ("sharded_gang_split", 0.1, False),
+    ("full_500kx100k", 0.004, True),  # chip_smoke.py's configuration
+    ("full_500kx100k_steady", 0.004, False),
+    ("full_1mx200k", 0.002, False),
 ]
 
 
@@ -112,7 +137,8 @@ def test_digests_equal_the_jax_package(name, scale, pin):
     ref, port = _both(name, scale, pin_auction=pin)
     for key in ("digest", "final_state_digest", "bound_total", "events",
                 "preempted_total", "sim", "injected_errors", "rpc_failures",
-                "invariant_violations"):
+                "invariant_violations", "restarts", "restored_objects",
+                "agent_restored_jobs", "vnode_deletions"):
         assert port.determinism[key] == ref.determinism[key], key
     assert port.determinism_json() == ref.determinism_json()
     # the scorecard, but for the fast path's latencies (wall-clock ms)
@@ -135,6 +161,7 @@ def _fixture_cases():
         "incremental_off_baseline": [("incremental", False), ("on", None)],
         "policy_off_baseline": [("on", None)],
         "admission_off_baseline": [("admission", None)],
+        "shard_off_baseline": [("on", None)],
     }
     #: the JAX package's tests run coldec "on" for these two only
     coldec_on = {"burst_backlog", "steady_poisson"}
@@ -142,8 +169,6 @@ def _fixture_cases():
     for fixture, fixture_arms in arms.items():
         base = json.loads((FIXTURES / f"{fixture}.json").read_text())
         for name in sorted(base):
-            if name in ("sharded_smoke", "crash_restart"):
-                continue  # their modules wait (ROADMAP Queue 1 items 4, 5)
             for arm in fixture_arms:
                 if fixture == "coldec_off_baseline" and arm[0] == "on" \
                         and name not in coldec_on:
@@ -169,7 +194,9 @@ def test_port_reproduces_off_baseline(fixture, name, arm):
     assert d["digest"] == want["digest"]
     assert d["final_state_digest"] == want["final_state_digest"]
     got, exp = dict(d["events"]), dict(want["events"])
-    if sc.incremental and fixture in ("incremental_off_baseline", "policy_off_baseline"):
+    if sc.incremental and fixture in (
+        "incremental_off_baseline", "policy_off_baseline", "shard_off_baseline",
+    ):
         # the incremental tick emits PlacementFailed once per backlog
         # generation: at most the fixture's per-tick count, and some
         got_pf, want_pf = got.pop("PlacementFailed", 0), exp.pop("PlacementFailed", 0)
@@ -181,26 +208,20 @@ def test_port_reproduces_off_baseline(fixture, name, arm):
 
 
 def test_every_fixture_entry_is_reproduced_or_waits():
-    """Each entry of the five fixtures is one of the cases above, except
-    the sharded and crash entries, whose modules wait."""
-    for fixture in ("coldec", "frames", "incremental", "policy", "admission"):
+    """Each entry of the six fixtures is one of the cases above, the
+    sharded and crash entries included."""
+    for fixture in ("coldec", "frames", "incremental", "policy", "admission", "shard"):
         base = json.loads((FIXTURES / f"{fixture}_off_baseline.json").read_text())
         covered = {n for f, n, _ in FIXTURE_CASES if f == f"{fixture}_off_baseline"}
-        assert set(base) - covered <= {"sharded_smoke", "crash_restart"}
+        assert set(base) == covered
 
 
 # ---- what waits, and the card -------------------------------------------
 
 
-#: scenarios that need persistence, leader election, the agent journal,
-#: sharding or the fleet
-WAITING = [
-    "crash_restart", "leader_failover", "agent_crash", "chaos_dual_crash",
-    "chaos_crash_rpc_flap", "chaos_crash_into_vanished_partition",
-    "full_50kx10k_crash", "sharded_smoke", "sharded_gang_split",
-    "full_500kx100k", "full_500kx100k_steady", "full_1mx200k",
-    "fleet_smoke", "fleet_kill_owner",
-]
+#: scenarios that need the fleet: its solver sidecars, the remote shard
+#: solve and the owner-kill chaos
+WAITING = ["fleet_smoke", "fleet_kill_owner"]
 
 
 @pytest.mark.parametrize("name", WAITING)
@@ -260,6 +281,8 @@ def test_cli_runs_a_scenario_on_the_cpu():
     )
     assert listed.returncode == 0, listed.stderr
     assert "fleet_smoke [not ported]" in listed.stdout
+    assert "crash_restart: " in listed.stdout and "sharded_smoke: " in listed.stdout
+    assert listed.stdout.count("[not ported]") == len(WAITING)
     assert "full_50kx10k [slow]:" in listed.stdout
 
 

@@ -1,14 +1,7 @@
 """The forked decode pool's equivalence tests (``tests/test_colpool.py``),
-run against the port's pool. The per-shard mirror split waits for the
-shard executor (ROADMAP Queue 1 item 5)."""
+run against the port's pool, the per-shard mirror split of the shard
+executor included."""
 
 from test_torch_twins import load_twin
 
-globals().update(load_twin(
-    "test_colpool",
-    drop=[
-        # ShardExecutor.mirror_groups and the sharded scenario
-        "TestMirrorGroups",
-        "TestMirrorDigestEquivalence",
-    ],
-))
+globals().update(load_twin("test_colpool"))

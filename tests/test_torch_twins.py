@@ -45,6 +45,7 @@ def load_twin(stem: str, *, rewrites=(), drop=()) -> dict:
         assert name in ns, f"{stem}: dropped test {name!r} no longer exists"
         del ns[name]
     ns["_port_entry_points_on_the_cpu"] = _port_entry_points_on_the_cpu
+    ns["_port_module_on_the_cpu"] = _port_module_on_the_cpu
     REGISTRY[stem] = (tuple(rewrites), tuple(drop))
     return ns
 
@@ -66,6 +67,21 @@ def _port_entry_points_on_the_cpu(monkeypatch):
     jax_colpool.reset()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _port_module_on_the_cpu():
+    """The same for the twin's class- and module-scoped fixtures, which
+    run their scenarios before any function-scoped fixture."""
+    from slurm_bridge_tpu.parallel import colpool as jax_colpool
+    from slurm_bridge_tpu_torch.parallel import colpool as port_colpool
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SBT_BACKEND", "cpu")
+        mp.setenv("SBT_COLPOOL_WORKERS", "2")
+        yield
+        port_colpool.reset()
+        jax_colpool.reset()
+
+
 def _tests_in(ns: dict) -> set[str]:
     return {
         k for k, v in ns.items()
@@ -77,7 +93,9 @@ def _tests_in(ns: dict) -> set[str]:
 @pytest.mark.parametrize("stem", [
     "test_core_parsers", "test_operator_sweep", "test_colpool",
     "test_colpool_write", "test_submit_bulk", "test_mirror_bulk",
-    "test_coldec", "test_sim",
+    "test_coldec", "test_sim", "test_persist", "test_agent_journal",
+    "test_recovery", "test_failover_process", "test_shard", "test_chaos",
+    "test_preemption",
 ])
 def test_twin_runs_every_reference_test_it_does_not_drop(stem):
     """Each twin file carries every test of its reference file except the

@@ -9,7 +9,7 @@ time of the ``bid_argmax`` kernels, the count of host synchronisations
 ``cudaDeviceSynchronize``) in the solve, and the operators that take the
 most host and device time. Needs a CUDA card.
 
-    python tools/port_profile.py [--rows 25] [--root DIR] [--tick | --sim]
+    python tools/port_profile.py [--rows 25] [--root DIR] [--tick | --sim [NAME] [--scale S]]
 
 ``--tick`` profiles tick 1 of chip_smoke.py's tick phase instead: a
 ``PlacementScheduler`` (``backend="auction"``, rounds=8) over the typed
@@ -18,7 +18,10 @@ warm-up tick on another store; it also prints the tick's phase times.
 ``--sim`` profiles chip_smoke.py's simulator run instead: ``SimHarness``
 on ``full_50kx10k`` at full width (3 ticks, ``backend="auction"``,
 rounds=8), after a warm-up run at 5 % scale; it also prints each tick's
-phase times and the run's digest.
+phase times and the run's digest. ``--sim NAME --scale S`` profiles
+another scenario pinned the same way (chip_smoke.py's ``pin_auction``):
+``full_50kx10k_crash`` or ``full_500kx100k --scale 0.1``, chip_smoke.py's
+phases 7 and 8.
 ``--root`` profiles the port package of another checkout (for example
 an unpacked earlier commit), so two trees compare in one call.
 """
@@ -77,27 +80,25 @@ def tick_work():
     return sched.tick, lambda: {"phase_ms": sched.last_phase_ms, "route": sched.last_route}
 
 
-def sim_work():
-    """(the full_50kx10k run, its digest and per-tick phases), after a
-    warm-up run at 5 % scale."""
-    import dataclasses
-
+def sim_work(name: str, scale: float):
+    """(the scenario's run, its digest and per-tick phases), after a
+    warm-up run at 5 % of its scale."""
+    import chip_smoke
     from slurm_bridge_tpu_torch.sim.harness import SimHarness
-    from slurm_bridge_tpu_torch.sim.scenarios import full_50kx10k
-    from slurm_bridge_tpu_torch.solver import AuctionConfig
+    from slurm_bridge_tpu_torch.sim.scenarios import SCENARIOS
 
     def harness(scale):
-        sc = dataclasses.replace(full_50kx10k(scale=scale), backend="auction",
-                                 auction_config=AuctionConfig(rounds=8, candidates=0))
-        return SimHarness(sc, device="cuda")
+        return SimHarness(chip_smoke.pin_auction(SCENARIOS[name](scale=scale)), device="cuda")
 
-    harness(0.05).run()
-    h = harness(1.0)
+    harness(0.05 * scale).run()
+    h = harness(scale)
     out = {}
 
     def extra():
         d = out["result"].determinism
-        return {"digest": d["digest"], "bound_total": d["bound_total"],
+        return {"sim": name, "scale": scale, "digest": d["digest"],
+                "bound_total": d["bound_total"],
+                "recovery_ms": out["result"].timing["recovery_ms"],
                 "tick_phase_ms": [{k: round(v, 1) for k, v in ph.items()}
                                   for ph in h._tick_phases]}
 
@@ -109,7 +110,9 @@ def main() -> None:
     ap.add_argument("--rows", type=int, default=25)
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tick", action="store_true", help="profile one headline tick")
-    ap.add_argument("--sim", action="store_true", help="profile the full_50kx10k simulator run")
+    ap.add_argument("--sim", nargs="?", const="full_50kx10k", default="", metavar="NAME",
+                    help="profile a simulator run (default full_50kx10k)")
+    ap.add_argument("--scale", type=float, default=1.0, help="the --sim scenario's scale")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -117,7 +120,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    work, extra = sim_work() if args.sim else tick_work() if args.tick else solve_work()
+    work, extra = (sim_work(args.sim, args.scale) if args.sim
+                   else tick_work() if args.tick else solve_work())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

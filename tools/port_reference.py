@@ -19,7 +19,13 @@ digested with).
 ``--scale`` (default 1.0) with the engine pinned as chip_smoke.py pins
 it (``backend="auction"``, ``AuctionConfig(rounds=8, candidates=0)``)
 and prints its determinism ``digest``, ``final_state_digest``,
-``bound_total``, invariant violations and its tick p50 and phases.
+``bound_total``, invariant violations and its tick p50 and phases. A
+crash scenario adds its restarts, the objects each restart restored, its
+recovery times and WAL counts; a sharded scenario runs every shard on
+the single-device auction (``ShardConfig(device_solve=False)``: the port
+carries no multi-device sweep, and the JAX package would take its
+``shard_map`` route on a host with several devices) and adds the plan's
+shard count and the cross-shard reconcile count.
 
 chip_smoke.py holds the port's solve, tick and simulator run on the card
 to these numbers.
@@ -27,6 +33,8 @@ to these numbers.
     JAX_PLATFORMS=cpu python tools/port_reference.py --nodes 2000 --jobs 10000
     JAX_PLATFORMS=cpu python tools/port_reference.py --tick --nodes 10000 --jobs 50000
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k_crash
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_500kx100k --scale 0.1
 """
 
 from __future__ import annotations
@@ -94,21 +102,36 @@ def run_sim(name: str, scale: float) -> dict:
         SCENARIOS[name](scale=scale), backend="auction",
         auction_config=AuctionConfig(rounds=8, candidates=0),
     )
+    config = 'backend="auction", AuctionConfig(rounds=8, candidates=0)'
+    if sc.sharding is not None:
+        sc = dataclasses.replace(
+            sc, sharding=dataclasses.replace(sc.sharding, device_solve=False)
+        )
+        config += f", {sc.sharding}"
     t0 = time.perf_counter()
     r = run_scenario(sc)
     d = r.determinism
-    return {
-        "sim": name, "scale": scale,
-        "config": 'backend="auction", AuctionConfig(rounds=8, candidates=0)',
+    out = {
+        "sim": name, "scale": scale, "config": config,
         "digest": d["digest"],
         "final_state_digest": d["final_state_digest"],
         "bound_total": d["bound_total"],
         "invariant_violations": len(d["invariant_violations"]),
+        "vnode_deletions": d["vnode_deletions"],
         "shape": r.shape,
         "cpu_seconds_wall": round(time.perf_counter() - t0, 3),
         "tick_p50_ms": r.timing["tick_p50_ms"],
         "phases_p50_ms": r.timing["phases_p50_ms"],
     }
+    if d["restarts"]:
+        out.update(restarts=d["restarts"], restored_objects=d["restored_objects"],
+                   recovery_ms=r.timing["recovery_ms"],
+                   wal_records=r.timing["wal_records_total"],
+                   snapshots=r.timing["wal_snapshots_total"])
+    if "shard" in d:
+        out.update(shard_count=d["shard"]["shard_count"],
+                   reconcile_placed=d["shard"]["reconcile_placed"])
+    return out
 
 
 def main() -> None:
