@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port: the placement solve, the
 placement tick, the bridge's job lifecycle on the simulated cluster, its
-recovery from a crash and the sharded tick.
+recovery from a crash, the sharded tick, the streaming reschedule and the
+placement-solver sidecar.
 
     python3 chip_smoke.py
 
@@ -80,9 +81,35 @@ which fails the run:
    ``bound_total`` and cross-shard ``reconcile_placed`` must equal the JAX
    package's (:data:`SHARD_REFERENCE`). Prints the shard solves (rows,
    nodes, launches, ms) and each tick's phases;
-9. hold the card against the JAX package's result on a reduced scenario
-   (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
-10. print times with the card's name and power limit, and the run's wall
+9. the streaming reschedule at full width (BASELINE config #5):
+   ``churn_scenario(10_000, 50_000, seed=5, load=0.7)`` with
+   ``AuctionConfig(rounds=8)`` on the device engine — one converging tick,
+   then 5 ticks in which 1,000 running jobs depart and 1,000 arrive
+   (``np.random.default_rng(0)``). Each tick must launch the kernel 8
+   times, and its ``node_of`` digest, kept, preempted and started shards
+   and stability must equal the JAX package's (:data:`CHURN_REFERENCE`).
+   Each kernel call of the first churn tick — the first whose rows are
+   mostly pinned incumbents, each scoring only the node it holds — is held
+   bit-exact against its plain version on its own operands, and timed again
+   on them once the counts are read. Then one tick at ``engine="auto"``
+   prints the route the production rule took. Prints each tick's rows,
+   pinned rows, counts, wall and re-solve time;
+10. the placement-solver sidecar in process: a ``PlaceRequest`` for the
+   headline inventory (57,635 shards × 10,000 nodes) in the port's
+   messages, serialized and parsed back, through
+   ``PlacementSolverServicer.Place`` (``solver="auction"``,
+   ``AuctionConfig(rounds=8)``), then again with the busiest node drained.
+   Each Place must launch the kernel 8 times, and its assignments and its
+   serialized response (``free_after`` included, ``solve_ms`` zeroed) must
+   equal the JAX package's (:data:`PLACE_REFERENCE`); the drained Place
+   must reuse the cached session; the first Place's kernel calls are held
+   bit-exact against the plain version and timed again on their operands;
+   ``SolverInfo`` must report
+   ``cuda`` and one device. (The gRPC transport and the fleet are not
+   driven here: the card's machine has no ``grpc``.)
+11. hold the card against the JAX package's result on a reduced scenario
+    (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
+12. print times with the card's name and power limit, and the run's wall
     time.
 
 The second-to-last lines are the kernels' JSON record and the
@@ -158,6 +185,50 @@ SHARD_REFERENCE = dict(
     final_state_digest="d750a68037aff5a807e69858cbbb4136e22641139bf27b7cece536cbab157c61",
     bound_total=46216,
     reconcile_placed=0,
+)
+#: The streaming reschedule at full width: BASELINE config #5's shape and
+#: seed (``benchmarks/scenarios/__init__.py`` ``scenario_5``) — one
+#: converging tick, then :data:`CHURN_TICKS` ticks in which
+#: :data:`CHURN_JOBS` running jobs depart and as many arrive
+#: (``np.random.default_rng(0)``).
+CHURN = dict(num_nodes=10_000, num_jobs=50_000, seed=5, load=0.7)
+CHURN_TICKS = 5
+CHURN_JOBS = 1_000
+#: The JAX package's streaming reschedule at :data:`CHURN` on the CPU, tick
+#: for tick (the converging tick, then each churn tick): ``node_of`` digest,
+#: kept, preempted and started shards and stability, with the device engine
+#: and the dense auction pinned, from
+#: ``JAX_PLATFORMS=cpu python tools/port_reference.py --churn``.
+CHURN_REFERENCE = [
+    dict(node_of_sha256="369a716a91ae7f24ac64943a35605fb1a4db0811ae1ed971bbe2cc21b2cdc001",
+         kept=0, preempted=0, started=54144, stability=1.0),
+    dict(node_of_sha256="4b7598564ae4d8b95cb3e726e32c7b03c749e91da2afd6e2bf4499f94b0cda87",
+         kept=52213, preempted=802, started=1213, stability=0.9848722059794398),
+    dict(node_of_sha256="8da70473a2cf99cc9c206162fee57f8fde52fc85283d11e0fca121532a9ebee5",
+         kept=51529, preempted=756, started=1689, stability=0.9855407860763126),
+    dict(node_of_sha256="862371ff210672d3d8c924fb985993e37f45f0b56270b160ae276af6f655dfa7",
+         kept=51337, preempted=764, started=1698, stability=0.9853361739697895),
+    dict(node_of_sha256="6cbe05ce49b569fa90d98a44f722e5e5ce6c4eab0114fb4a4631ada76fef13ce",
+         kept=51065, preempted=838, started=1703, stability=0.9838544978132285),
+    dict(node_of_sha256="7b7e9ad9aec58ba1c609d03a89f0823a54ab16a13172cd2d1059ecbdf896b249",
+         kept=50828, preempted=781, started=1801, stability=0.9848669805654052),
+]
+#: The JAX package's ``PlacementSolverServicer.Place`` (``solver="auction"``,
+#: the dense auction) on the headline inventory's ``PlaceRequest``, then on
+#: the same request with its busiest node drained: each Place's assignment
+#: and response digests (:func:`place_digest`, :func:`response_digest`),
+#: from ``JAX_PLATFORMS=cpu python tools/port_reference.py --place --nodes
+#: 10000 --jobs 50000``.
+PLACE_REFERENCE = dict(
+    drained="node00925",
+    places=[
+        dict(placed=45823,
+             place_sha256="39a18d2126e02d568a7cb1d60378e6069fa4ba1b50ea5a892a6c3109f612da76",
+             response_sha256="2085d505a29fc57a9cad656a4b3a8bbac5e32e05c017ff30a60cece77362eec2"),
+        dict(placed=45823,
+             place_sha256="4b8007d900f385bcbc78bc7b4fcfa249d6467bd721472de6719bd5b1211e5c72",
+             response_sha256="3888ca1bac3f3e4163a9eea238a5218dd73658d78ed2a83db932f538f21c6b07"),
+    ],
 )
 #: What the JAX package's default (native-routed on the CPU) run of
 #: ``full_50kx10k`` binds over its 3 ticks: printed beside the port's
@@ -333,6 +404,73 @@ def port_tick_world(partitions, nodes, demands):
 
     client = InventoryClient(pb, convert, partitions, nodes)
     return client, lambda: tick_world(objects, ObjectStore, partitions, demands)
+
+
+def churn_tick(sim, churn_step, rng, i: int):
+    """Tick ``i`` of the streaming reschedule: tick 0 converges the
+    initial placement, each later tick is one :data:`CHURN_JOBS`-job
+    ``churn_step``. ``sim``/``churn_step`` are a package's
+    ``solver.streaming`` objects: the port's here, the JAX package's in
+    ``tools/port_reference.py --churn`` and the tests."""
+    return sim.tick() if i == 0 else churn_step(sim, rng, CHURN_JOBS)
+
+
+def churn_summary(result) -> dict:
+    """What a streaming tick decided: the ``node_of`` digest and the kept,
+    preempted and started shard counts, and its stability."""
+    return dict(
+        node_of_sha256=digest(result.placement.node_of),
+        kept=int(result.kept.sum()), preempted=int(result.preempted.sum()),
+        started=int(result.started.sum()), stability=result.stability,
+    )
+
+
+def place_request(pb, convert, partitions, nodes, demands, solver="auction"):
+    """A ``PlaceRequest`` for ``random_inventory``'s lists, lowered as the
+    scheduler's remote solve lowers a tick (``bridge/scheduler.py``
+    ``_solve_remote``), in ``pb``'s messages (a package's ``wire.pb``)."""
+    return pb.PlaceRequest(
+        jobs=[convert.demand_to_place(d, job_id=str(j)) for j, d in enumerate(demands)],
+        inventory=[convert.node_to_proto(n) for n in nodes],
+        partitions=[convert.partition_to_proto(p) for p in partitions],
+        solver=solver,
+    )
+
+
+def place_digest(resp) -> str:
+    """sha256 over each job's assigned node names, in request order: the
+    ``node_of`` of a ``PlaceResponse``."""
+    h = hashlib.sha256()
+    for a in resp.assignments:
+        h.update((a.job_id + "\x1f" + ",".join(a.node_names)).encode() + b"\n")
+    return h.hexdigest()
+
+
+def response_digest(pb, resp) -> str:
+    """sha256 of the serialized ``PlaceResponse`` with its wall-clock
+    ``solve_ms`` zeroed: assignments, counts, solver and ``free_after``."""
+    r = pb.PlaceResponse.FromString(resp.SerializeToString())
+    r.solve_ms = 0.0
+    return hashlib.sha256(r.SerializeToString()).hexdigest()
+
+
+def busiest_node(resp) -> str:
+    """The node the most shards of a ``PlaceResponse`` landed on (the
+    first by name among equals)."""
+    counts: dict[str, int] = {}
+    for a in resp.assignments:
+        for n in a.node_names:
+            counts[n] = counts.get(n, 0) + 1
+    return min(counts, key=lambda n: (-counts[n], n))
+
+
+def drained_request(pb, request, name: str):
+    """A copy of ``request`` with node ``name`` in state ``DRAIN``."""
+    req = pb.PlaceRequest.FromString(request.SerializeToString())
+    for n in req.inventory:
+        if n.name == name:
+            n.state = "DRAIN"
+    return req
 
 
 def check_feasible(snap, batch, pl) -> None:
@@ -813,25 +951,187 @@ def shard_phase(kern, smi: str) -> dict:
     for j, r in enumerate(calls):
         p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
         errs.append(compare_recorded(kern, r, f"shard tick 0 call {j} ({n},{p})"))
-    # each of those calls timed again on its own operands and live mask
-    # (gated CUDA events, after the counts were read), beside the cells
-    # its live rows need: per shard the kernel should scale with them
-    timed = []
+    # each shard solve of tick 0 timed again call by call on its own
+    # operands (after the counts were read): per shard the kernel should
+    # scale with the cells its live rows need
+    kernel = [time_calls(kern, calls[k:k + ROUNDS], f"shard solve {k // ROUNDS} of tick 0", smi)
+              for k in range(0, len(calls), ROUNDS)]
+    return dict(result=result, ticks=ticks, solves=solves, errs=errs, wall_s=wall_s,
+                kernel=kernel, launches=launches)
+
+
+def churn_phase(kern, smi: str) -> dict:
+    """Phase 9: the streaming reschedule at full width (module
+    docstring). Returns what the kernels line and the summary print."""
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+    from slurm_bridge_tpu_torch.solver.streaming import churn_scenario, churn_step
+
+    sim = churn_scenario(**CHURN)
+    sim.config = AuctionConfig(rounds=ROUNDS)
+    sim.engine = "device"
+    rng = np.random.default_rng(0)
+    # each tick's re-solve (sim.tick: stage, pad, solve, keep) timed apart
+    # from the churn around it (departures, arrivals)
+    real_tick, solve_ms = sim.tick, []
+
+    def timed_tick():
+        t0 = time.perf_counter()
+        out = real_tick()
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    sim.tick = timed_tick
+    ticks, first_churn = [], []
+    for i, want in enumerate(CHURN_REFERENCE):
+        before, t0 = kern.LAUNCHES, time.perf_counter()
+        # tick 1, the first whose rows are mostly pinned incumbents: every
+        # kernel call kept with its operands for the check against plain
+        with kernel_events(keep_operands=i == 1, timed=False) as calls:
+            res = churn_tick(sim, churn_step, rng, i)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        got = churn_summary(res)
+        t = dict(got, launches=kern.LAUNCHES - before, wall_ms=wall_ms, solve_ms=solve_ms[-1],
+                 rows=int(res.placement.node_of.size), pinned=int(res.incumbent.sum()))
+        log(f"  churn tick {i}: rows {t['rows']}, pinned {t['pinned']}, kept {t['kept']}, "
+            f"preempted {t['preempted']}, started {t['started']}, stability "
+            f"{t['stability']:.6f}, kernel launches {t['launches']}, digest "
+            f"{got['node_of_sha256'][:16]}…; tick {wall_ms:.1f} ms, re-solve "
+            f"{solve_ms[-1]:.1f} ms [{smi}]")
+        require(sim.last_engine == "device", f"churn tick {i} ran {sim.last_engine}")
+        require(t["launches"] == ROUNDS, f"churn tick {i}: {t['launches']} kernel launches")
+        require(got == want, f"churn tick {i} {got} differs from the JAX package's {want}")
+        if i == 1:
+            first_churn = calls
+        ticks.append(t)
+    require(ticks[1]["pinned"] * 2 > ticks[1]["rows"], "churn tick 1 is not mostly pinned")
+    require(len(first_churn) == ROUNDS, f"{len(first_churn)} kernel calls kept on churn tick 1")
+    errs = []
+    for j, r in enumerate(first_churn):
+        p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
+        errs.append(compare_recorded(kern, r, f"churn tick 1 call {j} ({n},{p})"))
+        log(f"    live rows {int(r['live'].sum())} of {p}, pinned rows "
+            f"{int((r['args'][7] >= 0).sum())}")
+    # the product default: the production routing rule picks the engine
+    sim.engine = "auto"
+    before, t0 = kern.LAUNCHES, time.perf_counter()
+    auto = churn_step(sim, rng, CHURN_JOBS)
+    auto_wall = (time.perf_counter() - t0) * 1e3
+    auto_launches = kern.LAUNCHES - before
+    require(auto_launches == (ROUNDS if sim.last_engine == "device" else 0),
+            f"auto tick on {sim.last_engine}: {auto_launches} kernel launches")
+    log(f"  churn tick, engine auto: route {sim.last_engine}, kernel launches {auto_launches}, "
+        f"stability {auto.stability:.6f}, preempted {int(auto.preempted.sum())}; tick "
+        f"{auto_wall:.1f} ms, re-solve {solve_ms[-1]:.1f} ms [{smi}]")
+    churn_ms = [t["wall_ms"] for t in ticks[1:]]
+    p50 = statistics.median(churn_ms)
+    log(f"  digests, kept/preempted/started and stability equal the JAX package's on all "
+        f"{len(ticks)} ticks; churn tick p50 {p50:.1f} ms, re-solve ms "
+        f"{[round(t['solve_ms'], 1) for t in ticks]} [{smi}]")
+    # the main path's launches, read before the timing below adds its own
+    launches = kern.LAUNCHES
+    kernel = time_calls(kern, first_churn, "churn tick 1", smi)
+    return dict(ticks=ticks, errs=errs, p50_ms=p50, auto_route=sim.last_engine,
+                auto_launches=auto_launches, launches=launches, kernel=kernel)
+
+
+def sidecar_phase(kern, smi: str) -> dict:
+    """Phase 10: the placement-solver sidecar in process (module
+    docstring). Returns what the kernels line and the summary print."""
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+    from slurm_bridge_tpu_torch.solver.service import PlacementSolverServicer
+    from slurm_bridge_tpu_torch.solver.snapshot import random_inventory
+    from slurm_bridge_tpu_torch.wire import convert, pb
+    from slurm_bridge_tpu_torch.wire.rpc import LocalContext
+
+    partitions, nodes, demands = random_inventory(
+        HEADLINE["num_nodes"], HEADLINE["num_jobs"], seed=HEADLINE["seed"],
+        load=HEADLINE["load"], gpu_fraction=HEADLINE["gpu_fraction"],
+        gang_fraction=HEADLINE["gang_fraction"],
+    )
+    t0 = time.perf_counter()
+    raw = place_request(pb, convert, partitions, nodes, demands).SerializeToString()
+    t1 = time.perf_counter()
+    request = pb.PlaceRequest.FromString(raw)
+    log(f"  PlaceRequest: {len(request.jobs)} jobs, {len(request.inventory)} nodes, "
+        f"{len(raw)} bytes; encoded in {(t1 - t0) * 1e3:.1f} ms, parsed back in "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+    servicer = PlacementSolverServicer(AuctionConfig(rounds=ROUNDS))
+    info = servicer.SolverInfo(pb.SolverInfoRequest(), LocalContext())
+    log(f"  SolverInfo: backend {info.backend}, devices {info.devices}, mesh "
+        f"{info.mesh!r}, solvers {list(info.solvers)}")
+    require((info.backend, info.devices, info.mesh) == ("cuda", 1, ""),
+            f"SolverInfo reports {info.backend}/{info.devices}/{info.mesh!r}")
+    places, session, resp = [], None, None
+    for i, want in enumerate(PLACE_REFERENCE["places"]):
+        if i:
+            drained = busiest_node(resp)
+            require(drained == PLACE_REFERENCE["drained"],
+                    f"busiest node {drained}, the JAX package's {PLACE_REFERENCE['drained']}")
+            request = drained_request(pb, request, drained)
+        before, t0 = kern.LAUNCHES, time.perf_counter()
+        with kernel_events(keep_operands=i == 0, timed=False) as calls:
+            resp = servicer.Place(request, LocalContext())
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        t = dict(launches=kern.LAUNCHES - before, wall_ms=wall_ms, solve_ms=resp.solve_ms,
+                 placed=resp.placed, place_sha256=place_digest(resp),
+                 response_sha256=response_digest(pb, resp), calls=calls)
+        log(f"  Place {i}{' (node ' + drained + ' drained)' if i else ''}: solver "
+            f"{resp.solver}, placed {resp.placed}/{resp.total} jobs, kernel launches "
+            f"{t['launches']}, assignment digest {t['place_sha256'][:16]}…, response bytes "
+            f"equal the JAX package's: {t['response_sha256'] == want['response_sha256']}; "
+            f"Place {wall_ms:.1f} ms, of it solve {resp.solve_ms:.1f} ms [{smi}]")
+        require(resp.solver == "auction", f"Place {i} ran {resp.solver}")
+        require(t["launches"] == ROUNDS, f"Place {i}: {t['launches']} kernel launches")
+        require((t["placed"], t["place_sha256"]) == (want["placed"], want["place_sha256"]),
+                f"Place {i}'s assignments differ from the JAX package's")
+        require(t["response_sha256"] == want["response_sha256"],
+                f"Place {i}'s response bytes differ from the JAX package's")
+        if i:
+            require(not any(drained in a.node_names for a in resp.assignments),
+                    "the drained node still got a shard")
+            require(list(servicer._sessions.values()) == [session],
+                    "the drained Place did not reuse the cached session")
+        else:
+            require(len(servicer._sessions) == 1, f"{len(servicer._sessions)} sessions")
+            session = next(iter(servicer._sessions.values()))
+        places.append(t)
+    errs = []
+    calls = places[0].pop("calls")
+    for j, r in enumerate(calls):
+        p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
+        errs.append(compare_recorded(kern, r, f"Place 0 call {j} ({n},{p})"))
+    places[1].pop("calls")
+    # the main path's launches, read before the timing below adds its own
+    launches = kern.LAUNCHES
+    kernel = time_calls(kern, calls, "Place 0", smi)
+    return dict(places=places, errs=errs, launches=launches, kernel=kernel)
+
+
+def time_calls(kern, calls, label: str, smi: str) -> dict:
+    """Each recorded kernel call of one solve timed again on its own
+    operands and live mask (gated CUDA events), beside the cells its live
+    rows need. Returns the solve's kernel ms and needed cells."""
+    ms_total, cells_total, pinned_total = 0.0, 0, 0
     for j, r in enumerate(calls):
         kw = dict(r["kw"], live=r["live"])
         ms = cuda_ms(lambda: kern.bid_argmax(*r["args"], r["salt"], **kw), 5)
-        cells = needed_cells(r["args"][1].cpu().numpy(), r["args"][5].cpu().numpy(),
-                             r["live"].cpu().numpy())
-        timed.append(dict(cells=cells, ms=ms))
-        log(f"  shard tick 0 call {j}: {r['kw']['num_nodes']} nodes, live rows "
-            f"{int(r['live'].sum())}, needed cells {cells}, kernel {ms:.4f} ms [{smi}]")
-    for k in range(0, len(timed), ROUNDS):
-        solve = timed[k:k + ROUNDS]
-        cells, ms = sum(c["cells"] for c in solve), sum(c["ms"] for c in solve)
-        log(f"  shard solve {k // ROUNDS} of tick 0: {cells} needed cells, kernel {ms:.4f} ms "
-            f"({ms * 1e9 / max(cells, 1):.2f} ps per cell) [{smi}]")
-    return dict(result=result, ticks=ticks, solves=solves, errs=errs, wall_s=wall_s,
-                timed=timed, launches=launches)
+        node_part, job_part = r["args"][1].cpu().numpy(), r["args"][5].cpu().numpy()
+        live = r["live"].cpu().numpy()
+        pinned = live & (r["args"][7].cpu().numpy() >= 0)
+        cells = needed_cells(node_part, job_part, live)
+        # a pinned row can place only on the node it holds: one cell
+        # decides it, though the kernel scans its partition masked
+        pinned_cells = cells - needed_cells(node_part, job_part, live & ~pinned)
+        ms_total += ms
+        cells_total += cells
+        pinned_total += pinned_cells - int(pinned.sum())
+        log(f"  {label} call {j}: live rows {int(live.sum())} ({int(pinned.sum())} pinned), "
+            f"needed cells {cells} ({pinned_cells} of them pinned rows'), kernel {ms:.4f} ms "
+            f"[{smi}]")
+    log(f"  {label}: kernel {ms_total:.4f} ms per solve over {len(calls)} calls, "
+        f"{cells_total} needed cells ({ms_total * 1e9 / max(cells_total, 1):.2f} ps per "
+        f"cell), {pinned_total} of them cells a pinned row scans beyond its own node [{smi}]")
+    return dict(ms_per_solve=ms_total, cells=cells_total, pinned_extra_cells=pinned_total)
 
 
 def main() -> int:
@@ -1029,7 +1329,24 @@ def main() -> int:
     require(shard_launches > 0, "no kernel launch in the sharded phase")
     errs += shard["errs"]
 
-    # 9. the JAX package's result on the reduced scenario
+    # 9. the streaming reschedule at full width: most rows pinned
+    log("[9] main path: the streaming reschedule (BASELINE config #5) at full width")
+    kern.LAUNCHES = 0
+    churn = churn_phase(kern, smi)
+    churn_launches = churn["launches"]
+    require(churn_launches > 0, "no kernel launch in the streaming phase")
+    errs += churn["errs"]
+
+    # 10. the placement-solver sidecar, in process
+    log("[10] main path: the placement-solver sidecar's Place on the headline inventory")
+    kern.LAUNCHES = 0
+    sidecar = sidecar_phase(kern, smi)
+    sidecar_launches = sidecar["launches"]
+    require(sidecar_launches == ROUNDS * len(PLACE_REFERENCE["places"]),
+            f"{sidecar_launches} kernel launches in the sidecar phase")
+    errs += sidecar["errs"]
+
+    # 11. the JAX package's result on the reduced scenario
     ref_snap, ref_batch = random_scenario(
         REFERENCE["nodes"], REFERENCE["jobs"], seed=42, load=0.7,
         gpu_fraction=0.15, gang_fraction=0.05,
@@ -1040,31 +1357,38 @@ def main() -> int:
     ref_jobs = len(ref_pl.by_job(ref_batch))
     rel = abs(ref_jobs - REFERENCE["placed_jobs"]) / REFERENCE["placed_jobs"]
     match = digest(ref_pl.node_of) == REFERENCE["node_of_sha256"]
-    log(f"[9] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
+    log(f"[11] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
         f"vs JAX {REFERENCE['placed_jobs']} (rel {rel:.5f}); node_of digest matches JAX: {match}")
     require(rel <= 0.005, rel)
 
-    # 10. times
+    # 12. times
     p50 = statistics.median(wall_ms)
-    log(f"[10] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
+    log(f"[12] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
         f"(min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); kernel {kernel_ms:.4f} ms/launch "
         f"(bound {bound_ms:.4f}, ceiling {ceiling_ms:.4f}), {ms_per_solve:.4f} ms per solve; "
         f"total run {time.perf_counter() - t_start:.0f} s")
     for i, t in enumerate(tick["ticks"]):
-        log(f"[10] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
+        log(f"[12] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in t["phase_ms"].items())
             + f"; {t['launches']} kernel launches")
     for label, run, launches in (("full_50kx10k", sim, sim_launches),
                                  ("full_50kx10k_crash", crash, crash_launches),
                                  (f"full_500kx100k({SHARD_SCALE})", shard, shard_launches)):
         tm = run["result"].timing
-        log(f"[10] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
+        log(f"[12] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
             + f" (p50 over {len(run['ticks'])} ticks); {launches} kernel launches; "
             f"phase wall {run['wall_s']:.1f} s")
-    log(f"[10] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; shard solves "
-        f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms; "
-        f"total run {time.perf_counter() - t_start:.1f} s")
+    log(f"[12] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; shard solves "
+        f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms")
+    log(f"[12] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
+        f"re-solve ms {[round(t['solve_ms'], 1) for t in churn['ticks']]}, "
+        f"{churn_launches} kernel launches, kernel {churn['kernel']['ms_per_solve']:.4f} ms per "
+        f"solve on churn tick 1; auto route {churn['auto_route']}")
+    log(f"[12] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
+        f"(solve {[round(t['solve_ms'], 1) for t in sidecar['places']]}), "
+        f"{sidecar_launches} kernel launches, kernel {sidecar['kernel']['ms_per_solve']:.4f} ms "
+        f"per solve on Place 0; total run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "bid_argmax",
@@ -1084,6 +1408,11 @@ def main() -> int:
         + [t["launches"] for t in sim["ticks"]] + [t["launches"] for t in crash["ticks"]]
         + [t["launches"] for t in shard["ticks"]],
         "launches_per_shard_solve": [sv["launches"] for sv in shard["solves"]],
+        "launches_per_churn_tick": [t["launches"] for t in churn["ticks"]]
+        + [churn["auto_launches"]],
+        "launches_per_place": [t["launches"] for t in sidecar["places"]],
+        "churn_kernel_ms_per_solve": churn["kernel"]["ms_per_solve"],
+        "place_kernel_ms_per_solve": sidecar["kernel"]["ms_per_solve"],
         "tick_kernel_ms": tick["auto"]["kernel_ms"],
     }]}))
     print(smi)

@@ -152,11 +152,6 @@ class PlacementScheduler:
         explain_target: str = "",
         device=None,
     ):
-        if solver_endpoint:
-            raise NotImplementedError(
-                "the remote solver sidecar (solver_endpoint=) is not ported "
-                "yet: ROADMAP Queue 1 item 7"
-            )
         #: where the device auction runs: None is the card (or
         #: SBT_BACKEND=cpu), "cpu" the host (parallel/backend.py)
         self.device = device

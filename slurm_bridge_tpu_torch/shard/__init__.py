@@ -14,10 +14,9 @@ Public surface:
 
 See docs/sharding.md for the full design walkthrough.
 
-The port carries all of it but two routes: the fleet's remote shard
-solve (ROADMAP Queue 1 item 7, with the solver sidecar) and the
-multi-device sweep a big shard would take on two or more cards (item 8).
-Both raise ``NotImplementedError``; each shard's auction runs on the
+The port carries all of it but one route: the multi-device sweep a big
+shard would take on two or more cards (ROADMAP Queue 1 item 8), which
+raises ``NotImplementedError``; each shard's auction runs on the
 executor's ``device``.
 """
 

@@ -501,10 +501,7 @@ class ShardExecutor:
         remote = self.remote
         if remote is None or sid < 0:
             return None
-        raise NotImplementedError(
-            "the fleet's remote shard solve is not ported yet: ROADMAP "
-            "Queue 1 item 7"
-        )
+        return remote.try_solve(sid, engine, policy, snapshot, batch, incumbent)
 
     def _solve_shard(self, st, snapshot, batch, incumbent, sid=-1):
         """Route ONE shard's solve; returns (placement, engine name).

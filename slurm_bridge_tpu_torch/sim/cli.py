@@ -809,11 +809,7 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.list:
         for name, f in SCENARIOS.items():
-            try:
-                sc = f()
-            except NotImplementedError as e:
-                print(f"{name} [not ported]: {e}")
-                continue
+            sc = f()
             slow = " [slow]" if sc.slow else ""
             print(f"{name}{slow}: {sc.description}")
         return 0

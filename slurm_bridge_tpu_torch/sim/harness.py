@@ -317,18 +317,6 @@ def _quiet_event_logs() -> None:
     logging.getLogger("sbt.configurator").setLevel(logging.ERROR)
 
 
-def _refuse_unported(scenario: Scenario) -> None:
-    """Raise for a scenario that needs the fleet (ROADMAP Queue 1 item
-    7): its sidecars, the remote shard solve and the owner-kill chaos.
-    Every other scenario runs."""
-    kinds = {f.kind for f in scenario.faults.faults}
-    if scenario.fleet is not None or "kill_replica" in kinds:
-        raise NotImplementedError(
-            f"{scenario.name}: the fleet runtime is not ported yet: ROADMAP "
-            "Queue 1 item 7"
-        )
-
-
 class SimHarness:
     #: snapshot-compaction cadence (ticks): keeps both recovery inputs —
     #: a recent snapshot AND a WAL tail since it — live in every
@@ -338,7 +326,6 @@ class SimHarness:
     def __init__(self, scenario: Scenario, device=None):
         _quiet_event_logs()
         self.scenario = scenario
-        _refuse_unported(scenario)
         #: where the scheduler's device auction runs: None is the card
         #: (or SBT_BACKEND=cpu), "cpu" the host (parallel/backend.py)
         self.device = device

@@ -689,9 +689,6 @@ def fleet_smoke(scale: float = 1.0, seed: int = 58) -> Scenario:
     single-process run (the fleet-smoke gate strips ``fleet`` for the
     twin arm). The gate also requires ``remote_solves > 0``: a fleet run
     that silently solved inline is a failed gate, not a pass."""
-    raise NotImplementedError(
-        "the fleet runtime is not ported yet: ROADMAP Queue 1 item 7"
-    )
     from slurm_bridge_tpu_torch.fleet.runtime import FleetConfig
 
     base = sharded_smoke(scale=scale, seed=seed)
@@ -716,9 +713,6 @@ def fleet_kill_owner(scale: float = 1.0, seed: int = 61) -> Scenario:
     with zero lost binds, zero VirtualNode deletions, and recovery
     (restart-with-backoff re-adopting the sidecar) within
     ``max_recovery_ticks``."""
-    raise NotImplementedError(
-        "the fleet runtime is not ported yet: ROADMAP Queue 1 item 7"
-    )
     from slurm_bridge_tpu_torch.fleet.runtime import FleetConfig
 
     n_nodes = _n(600, scale)
@@ -1081,10 +1075,10 @@ FLEET_SCENARIOS = (
 #: coverage
 SMOKE_SCENARIOS = tuple(
     n for n, f in SCENARIOS.items()
-    if n not in FLEET_SCENARIOS
-    and not f().slow
+    if not f().slow
     and n not in CHAOS_SCENARIOS
     and n not in QUALITY_SCENARIOS
     and n not in ADMISSION_SCENARIOS
+    and n not in FLEET_SCENARIOS
     and (n not in SHARD_SCENARIOS or n == "sharded_smoke")
 )

@@ -12,6 +12,10 @@ Solver paths:
 - ``auction``       the auction sweep, on the card (or the CPU when asked)
 - ``session``       ``DeviceSolver``: the auction with the snapshot staged
 - ``routing``       which engine a solve of a given shape goes to
+- ``streaming``     warm-start re-solve with incumbents pinned — stability,
+                    preemption and 1k/s churn (BASELINE config #5)
+- ``service``       the solver as a gRPC sidecar (``PlacementSolver``),
+                    dialed by the bridge through ``solver_endpoint=``
 """
 
 from slurm_bridge_tpu_torch.solver.snapshot import (
@@ -27,6 +31,13 @@ from slurm_bridge_tpu_torch.solver.greedy import greedy_place
 from slurm_bridge_tpu_torch.solver.auction import auction_place, AuctionConfig
 from slurm_bridge_tpu_torch.solver.session import DeviceSolver
 from slurm_bridge_tpu_torch.solver.routing import choose_path
+from slurm_bridge_tpu_torch.solver.streaming import (
+    StreamingSim,
+    TickResult,
+    churn_scenario,
+    churn_step,
+    streaming_place,
+)
 
 __all__ = [
     "ClusterSnapshot",
@@ -41,4 +52,9 @@ __all__ = [
     "AuctionConfig",
     "DeviceSolver",
     "choose_path",
+    "StreamingSim",
+    "TickResult",
+    "churn_scenario",
+    "churn_step",
+    "streaming_place",
 ]

@@ -1,41 +1,38 @@
-"""What the bridge exchanges with the workload agent.
+"""The WorkloadManager + PlacementSolver contract.
 
-``pb`` holds the WorkloadManager and PlacementSolver messages named as in
-the JAX package's ``workload.proto`` (:mod:`~slurm_bridge_tpu_torch.wire.messages`),
-encoded by the port's own proto3 codec (:mod:`~slurm_bridge_tpu_torch.wire.codec`)
-byte for byte as ``workload_pb2`` encodes them, and :class:`RpcError` is
-the failure a call raises. Neither needs protobuf or grpc. A client is
-any object with the RPC methods the caller dials (:class:`ServiceClient`);
-the simulator's in-process agent is one. The gRPC transport (``dial``,
-a channel-backed client, ``serve``) comes with a later slice.
+``pb`` holds the messages named as in the JAX package's ``workload.proto``
+(:mod:`~slurm_bridge_tpu_torch.wire.messages`), encoded by the port's own
+proto3 codec (:mod:`~slurm_bridge_tpu_torch.wire.codec`) byte for byte as
+``workload_pb2`` encodes them, and :class:`RpcError` is the failure a call
+raises. Neither needs protobuf or grpc. :mod:`rpc` derives the gRPC stubs
+and handlers (:class:`ServiceClient`, :func:`dial`, :func:`serve`,
+:func:`generic_handler`) from the port's schema and imports ``grpc`` only
+when one of them is called, so the in-process tick and the simulator —
+whose client is any object with the RPC methods the caller dials — import
+this package on a machine without grpc.
 """
 
 from __future__ import annotations
 
-from typing import Protocol
-
 from slurm_bridge_tpu_torch.wire import messages as pb
 from slurm_bridge_tpu_torch.wire.errors import RpcError, StatusCode
+from slurm_bridge_tpu_torch.wire.rpc import (
+    ServiceClient,
+    dial,
+    generic_handler,
+    normalize_endpoint,
+    serve,
+    service_methods,
+)
 
-
-class ServiceClient(Protocol):
-    """The agent RPCs the bridge calls. Each takes one request message
-    and an optional ``timeout`` in seconds, and raises :class:`RpcError`
-    when the call fails. A client may also offer the raw-bytes twins of
-    the bulk RPCs (``JobsInfoBytes``, ``NodesBytes``, ``SubmitJobsBytes``),
-    which answer the serialized response."""
-
-    def Partitions(self, request: pb.PartitionsRequest, timeout=None) -> pb.PartitionsResponse: ...
-
-    def Partition(self, request: pb.PartitionRequest, timeout=None) -> pb.PartitionResponse: ...
-
-    def Nodes(self, request: pb.NodesRequest, timeout=None) -> pb.NodesResponse: ...
-
-    def CancelJob(self, request: pb.CancelJobRequest, timeout=None) -> pb.CancelJobResponse: ...
-
-    def SubmitJobs(self, request: pb.SubmitJobsRequest, timeout=None) -> pb.SubmitJobsResponse: ...
-
-    def JobsInfo(self, request: pb.JobsInfoRequest, timeout=None) -> pb.JobsInfoResponse: ...
-
-
-__all__ = ["RpcError", "ServiceClient", "StatusCode", "pb"]
+__all__ = [
+    "pb",
+    "RpcError",
+    "ServiceClient",
+    "StatusCode",
+    "dial",
+    "generic_handler",
+    "normalize_endpoint",
+    "serve",
+    "service_methods",
+]

@@ -30,8 +30,9 @@ The message base class offers the slice of the generated API the
 bridge, the simulated agent and the fault client use: keyword
 construction (repeated and nested values are copied, as protobuf copies
 them), ``SerializeToString(deterministic=...)``, ``FromString``,
-``CopyFrom``, equality, and repeated fields whose ``add(**kw)`` returns
-the element held in the list and whose ``append``/``extend`` copy.
+``CopyFrom``, ``HasField`` on nested messages, equality, and repeated
+fields whose ``add(**kw)`` returns the element held in the list and
+whose ``append``/``extend`` copy.
 ``DESCRIPTOR`` carries the descriptor attributes
 :mod:`~slurm_bridge_tpu_torch.wire.coldec` checks its tables against and
 the services :mod:`~slurm_bridge_tpu_torch.wire.rpc` reads.
@@ -212,7 +213,9 @@ class FileDescriptor:
     """The schema: every message type by name (their nested-message fields
     resolved here) and the services."""
 
-    def __init__(self, package: str, messages, services=()):
+    def __init__(self, package: str, messages, services=(), serialized_pb: bytes = b""):
+        #: the ``FileDescriptorProto`` bytes protoc writes for this schema
+        self.serialized_pb = serialized_pb
         self.message_types_by_name = {m.DESCRIPTOR.name: m.DESCRIPTOR for m in messages}
         for desc in self.message_types_by_name.values():
             for f in desc.fields:
@@ -387,6 +390,17 @@ class Message(metaclass=_MessageMeta):
             )
         self.__dict__.clear()
         self.__dict__.update(other._copy().__dict__)
+
+    def HasField(self, name: str) -> bool:
+        """Whether a singular nested-message field is present; like
+        protobuf, a ValueError for any other (proto3 scalar) field."""
+        f = self.DESCRIPTOR.fields_by_name.get(name)
+        if f is None or f.type != MESSAGE or f.is_repeated:
+            raise ValueError(
+                f'Protocol message {type(self).__name__} has no non-repeated '
+                f'submessage field "{name}" nor marked as optional'
+            )
+        return self._present(name)
 
     def SerializeToString(self, deterministic: bool = False) -> bytes:
         # the port writes no maps, so every serialization is deterministic

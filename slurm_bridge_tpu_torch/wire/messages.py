@@ -9,7 +9,9 @@ whose bytes equal ``workload_pb2``'s. Code written against the generated
 module reads the same against this one: keyword construction,
 ``SerializeToString``/``FromString``, repeated fields with ``add`` and
 copying ``append``, the enum values as module attributes (``RUNNING``,
-``FOLLOW``, …) and a ``DESCRIPTOR`` with the schema.
+``FOLLOW``, …) and a ``DESCRIPTOR`` with the schema (and, as
+``serialized_pb``, the ``FileDescriptorProto`` bytes of
+:mod:`~slurm_bridge_tpu_torch.wire.schema`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from slurm_bridge_tpu_torch.wire.codec import (
     FileDescriptor,
     Message,
 )
+from slurm_bridge_tpu_torch.wire.schema import SERIALIZED_PB
 
 # ---- enums (values as module attributes, as workload_pb2 has them) ----
 
@@ -452,4 +455,5 @@ DESCRIPTOR = FileDescriptor(
         if isinstance(v, type) and issubclass(v, Message) and v is not Message
     ],
     services=_SERVICES,
+    serialized_pb=SERIALIZED_PB,
 )

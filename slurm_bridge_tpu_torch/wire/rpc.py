@@ -1,26 +1,42 @@
-"""The agent RPCs' method table and bounded retries, without grpc.
+"""Descriptor-driven RPC wiring: the method table, bounded retries and the
+gRPC transport.
 
 The JAX package derives gRPC stubs and servicers from the protobuf
-descriptor at runtime (``wire/rpc.py``). The card's machine has neither
-``grpc`` nor ``protobuf``, and the simulator's agent is an object in the
-same process, so the port keeps the parts of that module that need no
-transport: the per-service method table (:func:`service_methods`, read
-from the port's own schema in :mod:`~slurm_bridge_tpu_torch.wire.messages`)
-and the bounded retry wrapper (:class:`RetryPolicy`,
-:func:`call_with_retries`, :class:`RetryingClient`), which catches the
-port's :class:`~slurm_bridge_tpu_torch.wire.errors.RpcError`. ``dial``,
-the channel-backed ``ServiceClient``, ``serve`` and ``generic_handler``
-come with the gRPC transport.
+descriptor at runtime. The port does the same from its own schema
+(:mod:`~slurm_bridge_tpu_torch.wire.messages`), whose message classes
+serve as grpc's serializers (``SerializeToString`` / ``FromString``, byte
+for byte what ``workload_pb2`` writes), so no protobuf is needed:
+
+- the per-service method table (:func:`service_methods`) and the bounded
+  retry wrapper (:class:`RetryPolicy`, :func:`call_with_retries`,
+  :class:`RetryingClient`), which need no transport and run on the card's
+  machine (the simulator's agent is an object in the same process);
+- the transport (:func:`dial`, the channel-backed :class:`ServiceClient`
+  with its raw-bytes twins, :func:`generic_handler`, :func:`serve`), which
+  imports ``grpc`` only when called.
+
+Errors cross the transport in the port's own terms: a ``grpc.RpcError``
+that reaches a :class:`ServiceClient` call is raised as the port's
+:class:`~slurm_bridge_tpu_torch.wire.errors.RpcError` with the same status
+code (so :func:`call_with_retries` retries it), and a servicer served by
+:func:`serve` aborts with the port's
+:class:`~slurm_bridge_tpu_torch.wire.errors.StatusCode`, which reaches the
+peer as grpc's code of the same name. :class:`LocalContext` is the context
+of a servicer called in process, with no transport at all.
+
+Endpoint grammar mirrors the reference's dial sites: an endpoint ending in
+``.sock`` dials/binds a unix-domain socket, anything else TCP.
 """
 
 from __future__ import annotations
 
+import logging
 import random
 import time
 from dataclasses import dataclass
 
 from slurm_bridge_tpu_torch.wire import messages as pb
-from slurm_bridge_tpu_torch.wire.errors import RpcError
+from slurm_bridge_tpu_torch.wire.errors import RpcError, StatusCode
 
 
 @dataclass(frozen=True)
@@ -30,6 +46,15 @@ class MethodSpec:
     response_streaming: bool
     req_cls: type
     resp_cls: type
+
+    @property
+    def kind(self) -> str:
+        return {
+            (False, False): "unary_unary",
+            (False, True): "unary_stream",
+            (True, False): "stream_unary",
+            (True, True): "stream_stream",
+        }[(self.request_streaming, self.response_streaming)]
 
 
 def service_methods(service_name: str) -> tuple[str, list[MethodSpec]]:
@@ -46,6 +71,23 @@ def service_methods(service_name: str) -> tuple[str, list[MethodSpec]]:
         for m in svc.methods
     ]
     return svc.full_name, specs
+
+
+def normalize_endpoint(endpoint: str) -> str:
+    """Reference semantics: *.sock → unix-domain socket target."""
+    if endpoint.startswith(("unix:", "dns:", "ipv4:", "ipv6:")):
+        return endpoint
+    if endpoint.endswith(".sock"):
+        return f"unix://{endpoint}" if endpoint.startswith("/") else f"unix:{endpoint}"
+    return endpoint
+
+
+def dial(endpoint: str):
+    """Open an insecure ``grpc.Channel`` (the reference dials insecure
+    everywhere)."""
+    import grpc
+
+    return grpc.insecure_channel(normalize_endpoint(endpoint))
 
 
 # --------------------------------------------------------------- retries
@@ -279,3 +321,332 @@ class RetryingClient:
         # the sim routes tens of thousands of calls per run through here
         setattr(self, name, call)
         return call
+
+
+# --------------------------------------------------------------- transport
+
+#: method name → ``fn(client_span, response)``, invoked while the
+#: ``rpc.client.<Method>`` span is still OPEN (trace stitching): the fleet
+#: runtime registers a PlaceShard hook that turns the response's
+#: worker-side timing summary into synthetic child spans, so the flight
+#: recorder's child-sum bookkeeping attributes the round-trip. Hook
+#: failures are swallowed — stitching must never break an RPC.
+_CLIENT_SPAN_HOOKS: dict = {}
+
+
+def set_client_span_hook(method_name: str, hook) -> None:
+    """Register (or, with ``hook=None``, clear) a per-method client-span
+    response hook. Process-wide, last writer wins."""
+    if hook is None:
+        _CLIENT_SPAN_HOOKS.pop(method_name, None)
+    else:
+        _CLIENT_SPAN_HOOKS[method_name] = hook
+
+
+def _port_error(err) -> RpcError:
+    """A ``grpc.RpcError`` as the port's :class:`RpcError`, status code
+    unchanged (an error without a code is UNKNOWN)."""
+    name = _code_name(err)
+    code = StatusCode[name] if name in StatusCode.__members__ else StatusCode.UNKNOWN
+    details = getattr(err, "details", None)
+    try:
+        text = details() if callable(details) else ""
+    except Exception:
+        text = ""
+    return RpcError(code, text or "")
+
+
+class _PortErrorStream:
+    """A response stream whose transport errors surface as the port's
+    :class:`RpcError`; every other attribute (``cancel``, ``code``…) is
+    the underlying call's."""
+
+    def __init__(self, stream, grpc_error):
+        self._stream = stream
+        self._grpc_error = grpc_error
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self._stream)
+        except self._grpc_error as err:
+            raise _port_error(err) from err
+
+    def __getattr__(self, name):
+        return getattr(self._stream, name)
+
+
+def _port_errors(multicallable, response_streaming: bool):
+    """Wrap a grpc multicallable so its failures raise the port's
+    :class:`RpcError` — what :func:`call_with_retries` and every caller of
+    the port catch."""
+    import grpc
+
+    def call(request, timeout=None, metadata=None):
+        try:
+            out = multicallable(request, timeout=timeout, metadata=metadata)
+        except grpc.RpcError as err:
+            raise _port_error(err) from err
+        return _PortErrorStream(out, grpc.RpcError) if response_streaming else out
+
+    return call
+
+
+def _traced_call(method_name: str, multicallable, unary: bool):
+    """Wrap a multicallable with trace propagation: when the caller is
+    inside an active span, a ``traceparent`` metadata entry rides the RPC
+    (so the server-side interceptor parents its span into the caller's
+    trace) and — for unary RPCs — a client-side ``rpc.client.<Method>``
+    span records the round-trip. Outside a trace the wrapper is a
+    pass-through: no metadata, no span, one attribute read of overhead."""
+    from slurm_bridge_tpu_torch.obs.tracing import TRACER, format_traceparent
+
+    def call(request, timeout=None, metadata=None):
+        parent = TRACER.current()
+        if parent is None or not parent.sampled:
+            # outside a trace — or inside one the sampler discarded (the
+            # whole trace exports or none of it): true pass-through
+            return multicallable(request, timeout=timeout, metadata=metadata)
+        if not unary:
+            # streams outlive the call frame: propagate context only
+            md = tuple(metadata or ()) + (
+                ("traceparent", format_traceparent(parent)),
+            )
+            return multicallable(request, timeout=timeout, metadata=md)
+        with TRACER.span(f"rpc.client.{method_name}") as span:
+            # the server parents under the CLIENT span, not the tick span
+            md = tuple(metadata or ()) + (
+                ("traceparent", format_traceparent(span)),
+            )
+            response = multicallable(request, timeout=timeout, metadata=md)
+            hook = _CLIENT_SPAN_HOOKS.get(method_name)
+            if hook is not None:
+                try:
+                    hook(span, response)
+                except Exception:
+                    logging.getLogger("sbt.rpc").exception(
+                        "client span hook for %s failed", method_name
+                    )
+            return response
+
+    return call
+
+
+def _retrying_call(method_name: str, traced, policy: RetryPolicy):
+    """Retry wrapper OUTSIDE the traced call, so every attempt gets its
+    own ``rpc.client.<Method>`` span inside an active trace."""
+
+    def call(request, timeout=None, metadata=None):
+        return call_with_retries(
+            lambda req, timeout=None: traced(req, timeout=timeout, metadata=metadata),
+            request,
+            method=method_name,
+            policy=policy,
+            timeout=timeout,
+        )
+
+    return call
+
+
+#: bulk RPCs with a raw-bytes client twin (``<Method>Bytes``): identity
+#: response-deserializer, so the caller hands the buffer to
+#: :mod:`~slurm_bridge_tpu_torch.wire.coldec` and decodes straight into
+#: columns — no response message is ever built. Same wire method, same
+#: retry budget, same ``rpc.client.<Method>`` span name.
+BYTES_METHODS = ("JobsInfo", "Nodes", "SubmitJobs")
+
+
+def _identity_bytes(raw: bytes) -> bytes:
+    return raw
+
+
+class ServiceClient:
+    """Dynamic client stub over a ``grpc.Channel``: one callable attribute
+    per RPC.
+
+    Unary calls carry bounded retries for transient codes (see
+    :class:`RetryPolicy`); pass ``retry=None`` to fail fast instead.
+    Streams are never retried (they outlive the call frame; the caller
+    owns resumption). Every failure raises the port's :class:`RpcError`.
+
+    The bulk methods additionally expose raw-bytes twins
+    (:data:`BYTES_METHODS`, e.g. ``client.JobsInfoBytes``) for the
+    zero-object wire→column decode; ``coldec=False`` suppresses them.
+
+    >>> client = ServiceClient(dial("localhost:9999"), "WorkloadManager")
+    >>> client.SubmitJob(pb.SubmitJobRequest(script="...", partition="debug"))
+    """
+
+    def __init__(
+        self,
+        channel,
+        service_name: str,
+        *,
+        retry: RetryPolicy | None = DEFAULT_RETRY,
+        coldec: bool = True,
+    ):
+        self._channel = channel
+        full_name, specs = service_methods(service_name)
+        for spec in specs:
+            factory = getattr(channel, spec.kind)
+            multicallable = _port_errors(
+                factory(
+                    f"/{full_name}/{spec.name}",
+                    request_serializer=spec.req_cls.SerializeToString,
+                    response_deserializer=spec.resp_cls.FromString,
+                ),
+                spec.response_streaming,
+            )
+            unary = spec.kind == "unary_unary"
+            call = _traced_call(spec.name, multicallable, unary=unary)
+            if unary and retry is not None:
+                call = _retrying_call(spec.name, call, retry)
+            setattr(self, spec.name, call)
+            if coldec and unary and spec.name in BYTES_METHODS:
+                # the request side is a passthrough too: a caller may
+                # hand the twin pre-encoded request bytes; a message
+                # still serializes exactly as before
+                raw_mc = _port_errors(
+                    factory(
+                        f"/{full_name}/{spec.name}",
+                        request_serializer=_bytes_passthrough(
+                            spec.req_cls.SerializeToString
+                        ),
+                        response_deserializer=_identity_bytes,
+                    ),
+                    False,
+                )
+                raw_call = _traced_call(spec.name, raw_mc, unary=True)
+                if retry is not None:
+                    raw_call = _retrying_call(spec.name, raw_call, retry)
+                setattr(self, spec.name + "Bytes", raw_call)
+
+    def close(self) -> None:
+        self._channel.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class LocalContext:
+    """The servicer context of an in-process call: ``abort`` raises the
+    port's :class:`RpcError` at once, as grpc's context raises to end the
+    RPC."""
+
+    def abort(self, code: StatusCode, details: str = ""):
+        raise RpcError(code, details)
+
+
+class _GrpcContext:
+    """A grpc servicer context whose ``abort`` takes the port's
+    :class:`StatusCode` (grpc's own codes pass unchanged)."""
+
+    def __init__(self, context):
+        self._context = context
+
+    def abort(self, code, details: str = ""):
+        import grpc
+
+        if isinstance(code, StatusCode):
+            code = grpc.StatusCode[code.name]
+        self._context.abort(code, details)
+
+    def __getattr__(self, name):
+        return getattr(self._context, name)
+
+
+def _port_servicer_call(fn, response_streaming: bool):
+    """A servicer method as grpc calls it: its context speaks the port's
+    status codes, and a port :class:`RpcError` it raises ends the RPC with
+    that code and details."""
+
+    if response_streaming:
+        def handler(request, context):
+            ctx = _GrpcContext(context)
+            try:
+                yield from fn(request, ctx)
+            except RpcError as err:
+                ctx.abort(err.code(), err.details())
+    else:
+        def handler(request, context):
+            ctx = _GrpcContext(context)
+            try:
+                return fn(request, ctx)
+            except RpcError as err:
+                ctx.abort(err.code(), err.details())
+
+    return handler
+
+
+def generic_handler(servicer, service_name: str):
+    """Build the server-side ``grpc.GenericRpcHandler`` table from a
+    servicer object.
+
+    The servicer implements methods named after the RPCs (missing ones
+    return UNIMPLEMENTED — an absent method degrades to a clean status).
+    """
+    import grpc
+
+    full_name, specs = service_methods(service_name)
+    handlers = {}
+    for spec in specs:
+        fn = getattr(servicer, spec.name, None)
+        if fn is None:
+            continue
+        maker = getattr(grpc, f"{spec.kind}_rpc_method_handler")
+        handlers[spec.name] = maker(
+            _port_servicer_call(fn, spec.response_streaming),
+            request_deserializer=spec.req_cls.FromString,
+            response_serializer=_bytes_passthrough(
+                spec.resp_cls.SerializeToString
+            ),
+        )
+    return grpc.method_handlers_generic_handler(full_name, handlers)
+
+
+def _bytes_passthrough(serialize):
+    """Serializer accepting EITHER a message or pre-serialized wire
+    bytes. Used on both halves of the bytes fast path: a servicer may
+    hand back an already-assembled response buffer, and a Bytes-twin
+    caller may hand in a pre-encoded request — the wire is identical
+    either way."""
+
+    def ser(resp):
+        return resp if isinstance(resp, bytes) else serialize(resp)
+
+    return ser
+
+
+def serve(
+    servicers: dict[str, object],
+    endpoint: str,
+    *,
+    max_workers: int = 16,
+    interceptors: tuple = (),
+):
+    """Start a ``grpc.Server`` hosting {service_name: servicer} at
+    endpoint.
+
+    Returns the started server; caller owns shutdown. Binding ``host:0``
+    rewrites the port into the returned server's ``bound_port`` attribute.
+    """
+    from concurrent import futures
+
+    import grpc
+
+    server = grpc.server(
+        futures.ThreadPoolExecutor(max_workers=max_workers),
+        interceptors=interceptors,
+    )
+    for name, servicer in servicers.items():
+        server.add_generic_rpc_handlers((generic_handler(servicer, name),))
+    target = normalize_endpoint(endpoint)
+    port = server.add_insecure_port(target)
+    server.bound_port = port  # type: ignore[attr-defined]
+    server.start()
+    return server

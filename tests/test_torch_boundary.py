@@ -127,6 +127,31 @@ DURABILITY_MODULES = [
 ]
 
 
+#: the solver's remaining entry points: the streaming reschedule, the
+#: placement-solver sidecar, the fleet and the obs modules they start, and
+#: the schema bytes of the fleet's handshake. Each imports on the card's
+#: machine (no grpc, protobuf or yaml): the transport imports grpc only
+#: where it is called
+ENTRY_POINT_MODULES = [
+    "slurm_bridge_tpu_torch.solver",
+    "slurm_bridge_tpu_torch.solver.streaming",
+    "slurm_bridge_tpu_torch.solver.service",
+    "slurm_bridge_tpu_torch.obs",
+    "slurm_bridge_tpu_torch.obs.logging",
+    "slurm_bridge_tpu_torch.obs.profiling",
+    "slurm_bridge_tpu_torch.obs.otlp",
+    "slurm_bridge_tpu_torch.obs.bootstrap",
+    "slurm_bridge_tpu_torch.fleet",
+    "slurm_bridge_tpu_torch.fleet.columnar",
+    "slurm_bridge_tpu_torch.fleet.membership",
+    "slurm_bridge_tpu_torch.fleet.worker",
+    "slurm_bridge_tpu_torch.fleet.sidecar",
+    "slurm_bridge_tpu_torch.fleet.runtime",
+    "slurm_bridge_tpu_torch.wire",
+    "slurm_bridge_tpu_torch.wire.schema",
+]
+
+
 def _foreign_after_import(mod: str) -> list[str]:
     """Modules of JAX, of the JAX package, of grpc, of protobuf or of yaml
     in ``sys.modules`` after a fresh interpreter imports ``mod``."""
@@ -184,6 +209,18 @@ def test_durability_modules_are_ported():
 def test_durability_imports_no_jax_grpc_protobuf_or_yaml(mod):
     """Each imports on its own on the card's machine, which has neither
     grpc, protobuf nor yaml."""
+    assert _foreign_after_import(mod) == []
+
+
+def test_entry_point_modules_are_ported():
+    assert set(ENTRY_POINT_MODULES) <= set(_port_modules())
+
+
+@pytest.mark.parametrize("mod", ENTRY_POINT_MODULES)
+def test_entry_points_import_no_jax_grpc_protobuf_or_yaml(mod):
+    """The streaming reschedule, the sidecar's servicer and the fleet
+    import on the card's machine, which has neither grpc, protobuf nor
+    yaml."""
     assert _foreign_after_import(mod) == []
 
 

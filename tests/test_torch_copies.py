@@ -48,14 +48,9 @@ ALLOWED = {
          "        except RpcError as e:\n            log.warning(\"remote Place"),
         ("            except grpc.RpcError as e:\n                log.warning(\n",
          "            except RpcError as e:\n                log.warning(\n"),
-        # the device keyword; solver_endpoint= not ported yet
+        # the device keyword
         ('        explain_target: str = "",\n    ):\n',
          '        explain_target: str = "",\n        device=None,\n    ):\n'
-         "        if solver_endpoint:\n"
-         "            raise NotImplementedError(\n"
-         '                "the remote solver sidecar (solver_endpoint=) is not ported "\n'
-         '                "yet: ROADMAP Queue 1 item 7"\n'
-         "            )\n"
          "        #: where the device auction runs: None is the card (or\n"
          '        #: SBT_BACKEND=cpu), "cpu" the host (parallel/backend.py)\n'
          "        self.device = device\n"),
@@ -212,18 +207,6 @@ ALLOWED = {
          "from slurm_bridge_tpu_torch.wire.errors import RpcError\n"
          "from slurm_bridge_tpu_torch.wire.rpc import RetryingClient, RetryPolicy\n"),
         ("grpc.RpcError", "RpcError", 7),
-        ("\nclass SimHarness:\n",
-         "\ndef _refuse_unported(scenario: Scenario) -> None:\n"
-         '    """Raise for a scenario that needs the fleet (ROADMAP Queue 1 item\n'
-         "    7): its sidecars, the remote shard solve and the owner-kill chaos.\n"
-         '    Every other scenario runs."""\n'
-         "    kinds = {f.kind for f in scenario.faults.faults}\n"
-         '    if scenario.fleet is not None or "kill_replica" in kinds:\n'
-         "        raise NotImplementedError(\n"
-         '            f"{scenario.name}: the fleet runtime is not ported yet: ROADMAP "\n'
-         '            "Queue 1 item 7"\n'
-         "        )\n"
-         "\n\nclass SimHarness:\n"),
         # the device keyword, checked before anything is built
         ("    def __init__(self, scenario: Scenario):\n"
          "        _quiet_event_logs()\n"
@@ -231,7 +214,6 @@ ALLOWED = {
          "    def __init__(self, scenario: Scenario, device=None):\n"
          "        _quiet_event_logs()\n"
          "        self.scenario = scenario\n"
-         "        _refuse_unported(scenario)\n"
          "        #: where the scheduler's device auction runs: None is the card\n"
          '        #: (or SBT_BACKEND=cpu), "cpu" the host (parallel/backend.py)\n'
          "        self.device = device\n"
@@ -244,36 +226,8 @@ ALLOWED = {
          "def run_scenario(scenario: Scenario, device=None) -> ScenarioResult:\n"
          "    return SimHarness(scenario, device=device).run()\n"),
     ],
-    # the fleet waits: its scenarios refuse to build, and the smoke set
-    # skips them before building any
-    "sim/scenarios.py": [
-        ("    from slurm_bridge_tpu_torch.fleet.runtime import FleetConfig\n",
-         "    raise NotImplementedError(\n"
-         '        "the fleet runtime is not ported yet: ROADMAP Queue 1 item 7"\n'
-         "    )\n"
-         "    from slurm_bridge_tpu_torch.fleet.runtime import FleetConfig\n", 2),
-        ("    if not f().slow\n"
-         "    and n not in CHAOS_SCENARIOS\n"
-         "    and n not in QUALITY_SCENARIOS\n"
-         "    and n not in ADMISSION_SCENARIOS\n"
-         "    and n not in FLEET_SCENARIOS\n",
-         "    if n not in FLEET_SCENARIOS\n"
-         "    and not f().slow\n"
-         "    and n not in CHAOS_SCENARIOS\n"
-         "    and n not in QUALITY_SCENARIOS\n"
-         "    and n not in ADMISSION_SCENARIOS\n"),
-    ],
-    # --list names the scenarios that wait instead of failing on them
-    "sim/cli.py": [
-        ("        for name, f in SCENARIOS.items():\n"
-         "            sc = f()\n",
-         "        for name, f in SCENARIOS.items():\n"
-         "            try:\n"
-         "                sc = f()\n"
-         "            except NotImplementedError as e:\n"
-         '                print(f"{name} [not ported]: {e}")\n'
-         "                continue\n"),
-    ],
+    "sim/scenarios.py": [],
+    "sim/cli.py": [],
     "sim/__init__.py": [],
     "sim/__main__.py": [],
     # ---- durability and the sharded tick ----
@@ -288,15 +242,13 @@ ALLOWED = {
     "shard/__init__.py": [
         ("See docs/sharding.md for the full design walkthrough.\n",
          "See docs/sharding.md for the full design walkthrough.\n\n"
-         "The port carries all of it but two routes: the fleet's remote shard\n"
-         "solve (ROADMAP Queue 1 item 7, with the solver sidecar) and the\n"
-         "multi-device sweep a big shard would take on two or more cards (item 8).\n"
-         "Both raise ``NotImplementedError``; each shard's auction runs on the\n"
+         "The port carries all of it but one route: the multi-device sweep a big\n"
+         "shard would take on two or more cards (ROADMAP Queue 1 item 8), which\n"
+         "raises ``NotImplementedError``; each shard's auction runs on the\n"
          "executor's ``device``.\n"),
     ],
     # each shard's auction runs on the executor's device; the multi-device
-    # sweep and the fleet's remote solve are not ported, and a device
-    # failure propagates (no CPU fallback)
+    # sweep is not ported, and a device failure propagates (no CPU fallback)
     "shard/executor.py": [
         ("   and PROMOTES big shards to the multi-device shard_map sweep\n"
          "   (``solver/sharded.py`` — the MULTICHIP_r05 dp4×mp2 parity dryrun,\n"
@@ -313,11 +265,6 @@ ALLOWED = {
          "        #: where each shard's device auction runs: None is the card (or\n"
          '        #: SBT_BACKEND=cpu), "cpu" the host (parallel/backend.py)\n'
          "        self.device = device\n"),
-        ("        return remote.try_solve(sid, engine, policy, snapshot, batch, incumbent)\n",
-         "        raise NotImplementedError(\n"
-         '            "the fleet\'s remote shard solve is not ported yet: ROADMAP "\n'
-         '            "Queue 1 item 7"\n'
-         "        )\n"),
         ("        # collectives rides the shard_map sweep whenever ≥2 devices\n"
          "        # exist (MULTICHIP_r05: dp4×mp2 parity ≥90% vs single-device);\n"
          "        # anything that goes wrong degrades to the native packer — the\n"
@@ -396,6 +343,40 @@ ALLOWED = {
             "Queue 1 item 8"
         )
 '''),
+    ],
+    # ---- the solver's remaining entry points: the obs modules the
+    # sidecar and the fleet start, and the fleet itself ----
+    "obs/__init__.py": [],
+    "obs/logging.py": [],
+    # the reference's source tree, named without the absolute path the
+    # reference's docstring gives it
+    "obs/profiling.py": [
+        ("side-effect import (" + "/".join(("", "root", "reference", "cmd", "")),
+         "side-effect import (the reference's cmd/"),
+    ],
+    "obs/otlp.py": [],
+    "obs/bootstrap.py": [],
+    "fleet/__init__.py": [],
+    "fleet/membership.py": [],
+    "fleet/columnar.py": [
+        ("from slurm_bridge_tpu_torch.wire import workload_pb2 as pb\n",
+         "from slurm_bridge_tpu_torch.wire import messages as pb\n"),
+    ],
+    "fleet/worker.py": [
+        ("from slurm_bridge_tpu_torch.wire import workload_pb2 as pb\n",
+         "from slurm_bridge_tpu_torch.wire import messages as pb\n"),
+    ],
+    "fleet/runtime.py": [
+        ("        from slurm_bridge_tpu_torch.wire import workload_pb2 as pb\n",
+         "        from slurm_bridge_tpu_torch.wire import messages as pb\n"),
+    ],
+    # the worker's engines are the host packers: it is spawned on the CPU
+    # backend, which it never leaves
+    "fleet/sidecar.py": [
+        ("        from slurm_bridge_tpu_torch.wire import workload_pb2 as pb\n",
+         "        from slurm_bridge_tpu_torch.wire import messages as pb\n"),
+        ('        env = {**os.environ, "JAX_PLATFORMS": "cpu"}\n',
+         '        env = {**os.environ, "SBT_BACKEND": "cpu"}\n'),
     ],
 }
 

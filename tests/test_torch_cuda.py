@@ -454,3 +454,63 @@ def test_update_snapshot_rebuilds_the_node_order(cuda):
     got = solver.solve(batch)
     ref = DeviceSolver(snap_b, AuctionConfig(rounds=4, candidates=0), device="cpu").solve(batch)
     np.testing.assert_array_equal(got.node_of, ref.node_of)
+
+
+@pytest.mark.cuda
+def test_churn_tick_kernel_calls_equal_plain(cuda):
+    """A streaming churn tick on the card, most of whose rows are pinned
+    incumbents (each may score only the node it holds): each kernel call
+    equals its plain version on its own operands, bit for bit, and the
+    tick equals the same tick on the CPU."""
+    import chip_smoke
+    from slurm_bridge_tpu_torch.solver.streaming import churn_scenario, churn_step
+
+    def run(device, keep):
+        sim = churn_scenario(800, 3000, seed=5, load=0.7, device=device)
+        sim.config = AuctionConfig(rounds=8, candidates=0)
+        sim.engine = "device"
+        rng = np.random.default_rng(0)
+        sim.tick()
+        with chip_smoke.kernel_events(keep_operands=keep, timed=False) as calls:
+            res = churn_step(sim, rng, 100)
+        return res, calls
+
+    card, calls = run("cuda", True)
+    cpu, _ = run("cpu", False)
+    assert len(calls) == 8
+    assert card.incumbent.mean() > 0.5
+    for r in calls:
+        kw = r["kw"]
+        assert (r["args"][7] >= 0).any()
+        pv, pi = kern.bid_argmax_plain(
+            *r["args"], r["salt"], jitter=kw["jitter"], affinity_weight=kw["affinity_weight"],
+            num_nodes=kw["num_nodes"], live=r["live"],
+        )
+        bv, bi = r["out"]
+        assert torch.equal(bi, pi)
+        assert torch.equal(bv.view(torch.int32), pv.view(torch.int32))
+    assert chip_smoke.churn_summary(card) == chip_smoke.churn_summary(cpu)
+
+
+@pytest.mark.cuda
+def test_sidecar_place_on_card_equals_cpu(cuda):
+    """The sidecar's Place on the card launches the kernel 8 times and
+    answers the bytes the CPU's servicer answers; SolverInfo reports the
+    card."""
+    import chip_smoke
+    from slurm_bridge_tpu_torch.solver.service import PlacementSolverServicer
+    from slurm_bridge_tpu_torch.solver.snapshot import random_inventory
+    from slurm_bridge_tpu_torch.wire import convert, pb
+    from slurm_bridge_tpu_torch.wire.rpc import LocalContext
+
+    partitions, nodes, demands = random_inventory(300, 1200, seed=42, load=0.7)
+    request = chip_smoke.place_request(pb, convert, partitions, nodes, demands)
+    cfg = AuctionConfig(rounds=8, candidates=0)
+    card_sv = PlacementSolverServicer(cfg)
+    before = kern.LAUNCHES
+    card = card_sv.Place(request, LocalContext())
+    assert kern.LAUNCHES - before == 8
+    cpu = PlacementSolverServicer(cfg, device="cpu").Place(request, LocalContext())
+    assert chip_smoke.response_digest(pb, card) == chip_smoke.response_digest(pb, cpu)
+    info = card_sv.SolverInfo(pb.SolverInfoRequest(), LocalContext())
+    assert (info.backend, info.devices) == ("cuda", torch.cuda.device_count())

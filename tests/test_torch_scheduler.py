@@ -289,18 +289,22 @@ def test_no_card_no_cpu_solve(backend, monkeypatch):
 
 
 def test_unported_routes_raise(monkeypatch):
-    """solver_endpoint= and the multi-device sharded auction are not
-    ported: each raises NotImplementedError, and the sharded route never
-    falls through to the single-device solve. shard= is ported: it builds
-    the port's executor on the scheduler's device."""
+    """The multi-device sharded auction is not ported: it raises
+    NotImplementedError, and the sharded route never falls through to the
+    single-device solve. shard= is ported: it builds the port's executor
+    on the scheduler's device; so is solver_endpoint=, which dials the
+    PlacementSolver sidecar (no connection is made until a tick)."""
     from slurm_bridge_tpu_torch.bridge.scheduler import PlacementScheduler
     from slurm_bridge_tpu_torch.bridge.store import ObjectStore
     from slurm_bridge_tpu_torch.shard import ShardConfig, ShardExecutor
+    from slurm_bridge_tpu_torch.wire.rpc import ServiceClient
 
     sharded = PlacementScheduler(ObjectStore(), None, shard=ShardConfig(), device="cpu")
     assert isinstance(sharded.shard, ShardExecutor) and sharded.shard.device == "cpu"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PlacementScheduler(ObjectStore(), None, solver_endpoint="unix:///x", device="cpu")
+    remote = PlacementScheduler(ObjectStore(), None, solver_endpoint="unix:///x.sock",
+                                device="cpu")
+    assert isinstance(remote._remote, ServiceClient)
+    remote._remote.close()
 
     explicit = World("slurm_bridge_tpu_torch", dict(backend="auction"))
     explicit.sched.sharded = True

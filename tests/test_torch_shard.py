@@ -1,6 +1,7 @@
 """The port's shard executor where the port differs from the JAX package:
 each shard's auction runs on the executor's device, the multi-device
-sweep and the fleet's remote solve are refused rather than faked, and a
+sweep is refused rather than faked, an attached fleet gets each keyed
+shard's solve (and a shard it declines is solved inline), and a
 failing device solve surfaces out of the tick instead of turning into a
 CPU solve. Where the two packages do the same, they give the same
 placements: the executor's auction route against the JAX package's on the
@@ -125,10 +126,25 @@ def test_two_cards_ask_for_the_unported_sweep(monkeypatch):
 
 
 def test_an_attached_fleet_is_refused():
+    """An attached fleet is asked for every keyed shard's solve; when it
+    refuses them (its sidecar down: ``try_solve`` answers None) each is
+    solved inline, with the placements of an executor that has no fleet."""
+
+    class DecliningFleet:
+        def __init__(self):
+            self.asked = []
+
+        def try_solve(self, sid, engine, policy, snapshot, batch, incumbent):
+            self.asked.append((sid, engine))
+            return None
+
+    bare = port_shard.ShardExecutor(port_shard.ShardConfig(**CONFIG), backend="greedy")
     ex = port_shard.ShardExecutor(port_shard.ShardConfig(**CONFIG), backend="greedy")
-    ex.remote = object()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        _solve(ex, port_types)
+    ex.remote = fleet = DecliningFleet()
+    by_job, _ = _solve(ex, port_types)
+    want, _ = _solve(bare, port_types)
+    assert fleet.asked and {e for _, e in fleet.asked} == {"greedy"}
+    assert by_job == want
 
 
 def _sharded_scheduler(device="cpu"):

@@ -7,8 +7,9 @@ scheduler, simulated agent, fault client — on the CPU. The determinism
 the ``final_state_digest`` (bindings, placements and lifecycle on both
 sides of the wire) must be equal. No tolerance. The port also reproduces
 the JAX package's pinned ``tests/fixtures/*_off_baseline.json`` digests,
-run the way the JAX package's tests run them, and refuses the two fleet
-scenarios, whose runtime it does not carry yet.
+run the way the JAX package's tests run them. Every scenario is a digest
+twin, the two fleet scenarios included: their solver sidecars are real
+worker processes of each package, spawned and killed over gRPC.
 
 Every test resets both packages' forked worker pools when it ends.
 """
@@ -126,6 +127,9 @@ DIGEST_CASES = [
     ("full_500kx100k", 0.004, True),  # chip_smoke.py's configuration
     ("full_500kx100k_steady", 0.004, False),
     ("full_1mx200k", 0.002, False),
+    # the fleet: each package's own sidecar processes over gRPC
+    ("fleet_smoke", 0.05, False),
+    ("fleet_kill_owner", 0.05, False),
 ]
 
 
@@ -146,7 +150,14 @@ def test_digests_equal_the_jax_package(name, scale, pin):
 
 
 def _virtual(quality: dict) -> dict:
-    return {k: v for k, v in quality.items() if "latency" not in k}
+    """The scorecard without wall-clock latencies and without the fleet's
+    transport counters (remote solves against inline fallbacks follow the
+    OS's scheduling of real sidecar processes; the harness keeps them out
+    of the digests for that reason)."""
+    return {
+        k: v for k, v in quality.items()
+        if "latency" not in k and k != "fleet_remote"
+    }
 
 
 # ---- the JAX package's pinned baselines ---------------------------------
@@ -219,24 +230,25 @@ def test_every_fixture_entry_is_reproduced_or_waits():
 # ---- what waits, and the card -------------------------------------------
 
 
-#: scenarios that need the fleet: its solver sidecars, the remote shard
-#: solve and the owner-kill chaos
-WAITING = ["fleet_smoke", "fleet_kill_owner"]
-
-
-@pytest.mark.parametrize("name", WAITING)
-def test_scenario_needing_unported_modules_raises(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        port_sim.run_scenario(
-            port_scenarios.SCENARIOS[name](scale=0.01), device="cpu"
-        )
-    assert port_colpool._pool is None  # refused before anything started
-
-
 def test_waiting_scenarios_are_the_ones_listed():
-    """Every other scenario runs: the list above is exactly what waits."""
-    runnable = set(port_scenarios.SCENARIOS) - set(WAITING)
-    assert {n for n, _, _ in DIGEST_CASES} == runnable
+    """No scenario waits: every one of them is a digest twin above."""
+    assert {n for n, _, _ in DIGEST_CASES} == set(port_scenarios.SCENARIOS)
+
+
+def test_fleet_scenarios_solve_remotely_and_leave_no_sidecar():
+    """The fleet scenarios really solve through the port's sidecars (a
+    silently-inline run would give the same digests), and every sidecar
+    process is gone when the run ends."""
+    h = port_harness.SimHarness(port_scenarios.fleet_smoke(scale=0.05), device="cpu")
+    fleet = h.fleet
+    pids = [s.proc.pid for s in fleet.supervisors.values()]
+    result = h.run()
+    assert result.quality["fleet_remote"]["remote_solves"] > 0
+    assert result.determinism["fleet"]["replicas"] == 1
+    assert h.fleet is None
+    for pid in pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
@@ -280,9 +292,9 @@ def test_cli_runs_a_scenario_on_the_cpu():
         capture_output=True, text=True, cwd=REPO, env=env, timeout=120,
     )
     assert listed.returncode == 0, listed.stderr
-    assert "fleet_smoke [not ported]" in listed.stdout
+    assert "fleet_smoke: " in listed.stdout and "fleet_kill_owner: " in listed.stdout
     assert "crash_restart: " in listed.stdout and "sharded_smoke: " in listed.stdout
-    assert listed.stdout.count("[not ported]") == len(WAITING)
+    assert "[not ported]" not in listed.stdout
     assert "full_50kx10k [slow]:" in listed.stdout
 
 

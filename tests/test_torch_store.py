@@ -2,12 +2,10 @@
 
 Twins of ``tests/test_store_snapshots.py`` (frozen copy-on-read
 snapshots, the (kind, node_name) index, the dirty-set, batched optimistic
-writes, the owner cascade) and of ``tests/test_colstore.py`` (the
-columnar tables observably identical to the object store) — all but the
-submit-converter check, whose converters come with the vnode slice — run
-against ``slurm_bridge_tpu_torch.bridge``; and one check that the same
-sequence of creates, mutates, binds and deletes leaves both packages'
-stores in the same state.
+writes, the owner cascade) run against ``slurm_bridge_tpu_torch.bridge``
+(``tests/test_torch_twin_colstore.py`` runs ``tests/test_colstore.py``);
+and one check that the same sequence of creates, mutates, binds and
+deletes leaves both packages' stores in the same state.
 """
 
 import dataclasses
@@ -16,16 +14,6 @@ import random
 import numpy as np
 import pytest
 
-from slurm_bridge_tpu_torch.bridge.colstore import SegmentHeap, object_array, object_full
-from slurm_bridge_tpu_torch.bridge.columns import (
-    CR_STATE_OF_PHASE,
-    DEFAULT_COLUMNAR,
-    JOBSTATUS_BY_CODE,
-    PHASE_CODE,
-    PHASE_OF_SINGLE_STATE,
-    PHASE_STRS,
-    STATE_STRS,
-)
 from slurm_bridge_tpu_torch.bridge.freeze import (
     FrozenDict,
     FrozenInstanceError,
@@ -40,17 +28,12 @@ from slurm_bridge_tpu_torch.bridge.freeze import (
 from slurm_bridge_tpu_torch.bridge.objects import (
     BridgeJob,
     BridgeJobSpec,
-    ContainerStatus,
-    JobState,
     Meta,
     Pod,
-    PodPhase,
     PodRole,
     PodSpec,
     PodStatus,
-    SubjobStatus,
 )
-from slurm_bridge_tpu_torch.bridge.statusmap import job_state_for_pod_phase, pod_phase_for
 from slurm_bridge_tpu_torch.bridge.store import (
     AlreadyExists,
     Conflict,
@@ -397,484 +380,6 @@ def test_frozen_replace_shares_and_rejects_mutation():
     assert status2.job_infos is stored.status.job_infos
     with pytest.raises(FrozenInstanceError):
         status2.phase = "Failed"
-
-
-# ==================================================== twins of test_colstore
-
-
-SCRIPT = "#!/bin/sh\ntrue\n"
-
-
-def _cdemand(rng: random.Random | None = None) -> JobDemand:
-    r = rng or random.Random(0)
-    return JobDemand(
-        partition=f"p{r.randrange(3)}",
-        script=SCRIPT,
-        cpus_per_task=r.randrange(1, 8),
-        ntasks=r.randrange(1, 4),
-        nodes=r.randrange(1, 3),
-    )
-
-
-def _cinfo(rng: random.Random, jid: int) -> JobInfo:
-    from datetime import datetime
-
-    state = rng.choice(list(JobStatus))
-    return JobInfo(
-        id=jid,
-        state=state,
-        name=f"job-{jid}",
-        user_id=f"u{rng.randrange(4)}",
-        exit_code=rng.choice(["", "0:0", "1:0"]),
-        submit_time=rng.choice(
-            [None, datetime(2026, 1, 1, 12, 0, rng.randrange(60))]
-        ),
-        start_time=rng.choice(
-            [None, datetime(2026, 1, 1, 12, 30, rng.randrange(60))]
-        ),
-        run_time_s=rng.randrange(0, 4000),
-        time_limit_s=3600,
-        std_out=f"/o/{jid}",
-        std_err=f"/e/{jid}",
-        partition=f"p{rng.randrange(3)}",
-        node_list=f"n{rng.randrange(10)}",
-        batch_host=f"n{rng.randrange(10)}",
-        num_nodes=rng.randrange(1, 4),
-        array_id=rng.choice(["", f"{jid}_0"]),
-        reason=rng.choice(["", "Resources"]),
-    )
-
-
-def _cpod(rng: random.Random, i: int) -> Pod:
-    n_infos = rng.choice([0, 1, 1, 1, 2])
-    infos = [_cinfo(rng, 9000 + i * 10 + k) for k in range(n_infos)]
-    return Pod(
-        meta=Meta(
-            name=f"pod-{i}",
-            uid=f"uid-pod-{i}",
-            owner=rng.choice(["", f"bj-{i % 5}"]),
-            labels={"role": "sizecar", "i": str(i)},
-            annotations={} if rng.random() < 0.5 else {"k": f"v{i}"},
-        ),
-        spec=PodSpec(
-            role=rng.choice([PodRole.SIZECAR, PodRole.WORKER]),
-            partition=f"p{i % 3}",
-            node_name=rng.choice(["", f"vn-p{i % 3}"]),
-            placement_hint=rng.choice([(), (f"n{i}",)]),
-            demand=_cdemand(rng) if rng.random() < 0.8 else None,
-        ),
-        status=PodStatus(
-            phase=rng.choice(PHASE_STRS),
-            reason=rng.choice(["", "Unschedulable: insufficient capacity"]),
-            job_ids=tuple(inf.id for inf in infos),
-            job_infos=infos,
-            containers=[
-                ContainerStatus(name=f"job-{i}", state="running")
-            ]
-            if rng.random() < 0.3
-            else [],
-        ),
-    )
-
-
-def _cjob(rng: random.Random, i: int) -> BridgeJob:
-    job = BridgeJob(
-        meta=Meta(name=f"bj-{i}", uid=f"uid-bj-{i}", labels={"tenant": f"t{i % 2}"}),
-        spec=BridgeJobSpec(partition=f"p{i % 3}", sbatch_script=SCRIPT),
-    )
-    job.status.state = rng.choice(STATE_STRS)
-    job.status.reason = rng.choice(["", "failed: boom"])
-    if rng.random() < 0.5:
-        job.status.subjobs = {
-            "0": SubjobStatus(
-                id=5000 + i,
-                state=rng.choice(list(JobStatus)),
-                run_time_s=rng.randrange(100),
-                submit_time="2026-01-01T12:00:00",
-            )
-        }
-    return job
-
-
-def _assert_stores_equal(cs: ObjectStore, os_: ObjectStore) -> None:
-    for kind in (Pod.KIND, BridgeJob.KIND):
-        a, b = cs.list(kind), os_.list(kind)
-        assert len(a) == len(b)
-        for x, y in zip(a, b):
-            assert x == y, f"{kind}/{x.meta.name} diverged"
-            assert x.meta.resource_version == y.meta.resource_version
-            assert is_frozen(x)
-
-
-def _drain(q) -> list:
-    out = []
-    while True:
-        try:
-            out.append(q.get_nowait())
-        except Exception:
-            break
-    return out
-
-
-# ------------------------------------------------- lookup-table oracles
-
-
-def test_phase_lookup_tables_in_sync_with_statusmap():
-    for code, status in enumerate(JOBSTATUS_BY_CODE):
-        assert PHASE_STRS[PHASE_OF_SINGLE_STATE[code]] == pod_phase_for([status])
-    for pcode, phase in enumerate(PHASE_STRS):
-        assert STATE_STRS[CR_STATE_OF_PHASE[pcode]] == job_state_for_pod_phase(phase)
-
-
-# ------------------------------------------------- fuzzed equivalence
-
-
-@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
-def test_fuzzed_columnar_equals_oracle(seed):
-    """The same randomized op sequence through the columnar store and
-    the frozen-object oracle must be observably identical: snapshots,
-    resource versions, watch events, dirty sets, node-index lists."""
-    rng = random.Random(seed)
-    build_rng_a, build_rng_b = random.Random(seed + 100), random.Random(seed + 100)
-    cs = ObjectStore()  # columnar for Pod + BridgeJob (the default)
-    os_ = ObjectStore(columnar=())  # the oracle
-    assert set(DEFAULT_COLUMNAR) == {Pod.KIND, BridgeJob.KIND}
-    wq_c = cs.watch((Pod.KIND, BridgeJob.KIND))
-    wq_o = os_.watch((Pod.KIND, BridgeJob.KIND))
-    live: list[tuple[str, str]] = []
-    marks_c = {Pod.KIND: 0, BridgeJob.KIND: 0}
-    marks_o = {Pod.KIND: 0, BridgeJob.KIND: 0}
-    i = 0
-
-    def op_create():
-        nonlocal i
-        if rng.random() < 0.6:
-            a, b = _cpod(build_rng_a, i), _cpod(build_rng_b, i)
-        else:
-            a, b = _cjob(build_rng_a, i), _cjob(build_rng_b, i)
-        i += 1
-        ra = cs.create(a, site="fuzz.create")
-        rb = os_.create(b, site="fuzz.create")
-        assert ra == rb
-        live.append((type(a).KIND, a.meta.name))
-
-    def op_create_dup():
-        if not live:
-            return
-        kind, name = rng.choice(live)
-        obj_c = cs.get(kind, name)
-        with pytest.raises(AlreadyExists):
-            cs.create(dataclasses.replace(obj_c, meta=dataclasses.replace(obj_c.meta)))
-        obj_o = os_.get(kind, name)
-        with pytest.raises(AlreadyExists):
-            os_.create(dataclasses.replace(obj_o, meta=dataclasses.replace(obj_o.meta)))
-
-    def op_mutate():
-        if not live:
-            return
-        kind, name = rng.choice(live)
-        reason = f"r{rng.randrange(100)}"
-        if kind == Pod.KIND:
-            def fn(p):
-                p.status.reason = reason
-                p.status.phase = PodPhase.RUNNING
-        else:
-            def fn(j):
-                j.status.reason = reason
-        cs.mutate(kind, name, fn, site="fuzz.mutate")
-        os_.mutate(kind, name, fn, site="fuzz.mutate")
-
-    def op_update_batch():
-        if not live:
-            return
-        picks = sorted(set(rng.sample(live, min(len(live), rng.randrange(1, 6)))))
-        for store in (cs, os_):
-            objs = []
-            for kind, name in picks:
-                cur = store.get(kind, name)
-                if kind == Pod.KIND:
-                    objs.append(fast_replace(
-                        cur,
-                        meta=fast_replace(cur.meta),
-                        status=frozen_replace(cur.status, reason="batched"),
-                    ))
-                else:
-                    objs.append(fast_replace(
-                        cur,
-                        meta=fast_replace(cur.meta),
-                        status=frozen_replace(cur.status, reason="batched"),
-                    ))
-            results = store.update_batch(objs, site="fuzz.batch")
-            assert not any(isinstance(r, Exception) for r in results)
-
-    def op_conflict():
-        if not live:
-            return
-        kind, name = rng.choice(live)
-        for store in (cs, os_):
-            cur = store.get(kind, name)
-            stale = fast_replace(
-                cur,
-                meta=fast_replace(cur.meta),
-                status=frozen_replace(cur.status, reason="stale-write"),
-            )
-            store.mutate(kind, name, lambda o: None, site="fuzz.touch")
-            with pytest.raises(Conflict):
-                store.update(stale, site="fuzz.conflict")
-
-    def op_delete():
-        if not live:
-            return
-        kind, name = rng.choice(live)
-        # cascade: deleting a BridgeJob owner removes owned pods in both
-        cs.delete(kind, name)
-        os_.delete(kind, name)
-        deleted_c = {(kind, name)}
-        live[:] = [
-            (k, n)
-            for (k, n) in live
-            if (k, n) not in deleted_c and cs.try_get(k, n) is not None
-        ]
-
-    def op_mark():
-        nonlocal marks_c, marks_o
-        kind = rng.choice((Pod.KIND, BridgeJob.KIND))
-        rv_c, ch_c, del_c = cs.changes_since(kind, marks_c[kind])
-        rv_o, ch_o, del_o = os_.changes_since(kind, marks_o[kind])
-        assert sorted(ch_c) == sorted(ch_o)
-        assert sorted(del_c) == sorted(del_o)
-        marks_c[kind], marks_o[kind] = rv_c, rv_o
-
-    def op_list_by_node():
-        nodes = {""} | {
-            p.spec.node_name for p in cs.list(Pod.KIND) if p.spec.node_name
-        }
-        for node in sorted(nodes):
-            assert cs.list_by_node(Pod.KIND, node) == os_.list_by_node(Pod.KIND, node)
-
-    ops = [
-        (op_create, 5), (op_create_dup, 1), (op_mutate, 5),
-        (op_update_batch, 3), (op_conflict, 1), (op_delete, 2),
-        (op_mark, 2), (op_list_by_node, 1),
-    ]
-    weighted = [f for f, w in ops for _ in range(w)]
-    for _ in range(60):
-        rng.choice(weighted)()
-        _assert_stores_equal(cs, os_)
-    assert [tuple(e) for e in _drain(wq_c)] == [tuple(e) for e in _drain(wq_o)]
-    # commit attribution followed the ops identically on both stores
-    assert cs.commit_counts == os_.commit_counts
-
-
-@pytest.mark.parametrize("seed", [0, 2])
-def test_update_rows_equals_per_object_updates(seed):
-    """The row-write hot path vs the same logical writes applied
-    per-object on the oracle: identical snapshots, rvs, watch events."""
-    rng = random.Random(seed)
-    build_a, build_b = random.Random(seed), random.Random(seed)
-    cs, os_ = ObjectStore(), ObjectStore(columnar=())
-    pods_c = [_cpod(build_a, i) for i in range(30)]
-    pods_o = [_cpod(build_b, i) for i in range(30)]
-    for a, b in zip(pods_c, pods_o):
-        cs.create(a)
-        os_.create(b)
-    wq_c, wq_o = cs.watch((Pod.KIND,)), os_.watch((Pod.KIND,))
-    table = cs.table(Pod.KIND)
-    c = table.cols
-    for _ in range(8):
-        picked = sorted(rng.sample(range(30), rng.randrange(1, 10)))
-        names = [f"pod-{i}" for i in picked]
-        cur_rv = np.asarray(
-            [cs.get(Pod.KIND, n).meta.resource_version for n in names], np.int64
-        )
-        reasons = object_array([f"vec-{rng.randrange(5)}" for _ in names])
-        phases = np.asarray(
-            [rng.randrange(len(PHASE_STRS)) for _ in names], np.int8
-        )
-
-        def writer(rws, sel):
-            c.reason[rws] = reasons[sel]
-            c.phase[rws] = phases[sel]
-
-        res = cs.update_rows(
-            Pod.KIND, names, cur_rv, writer, site="fuzz.rows"
-        )
-        assert (res > 0).all()
-        for k, n in enumerate(names):
-            def apply(p, k=k):
-                return fast_replace(
-                    p,
-                    meta=fast_replace(p.meta),
-                    status=frozen_replace(
-                        p.status,
-                        reason=reasons[k],
-                        phase=PHASE_STRS[phases[k]],
-                    ),
-                )
-            os_.replace_update(Pod.KIND, n, apply, site="fuzz.rows")
-        _assert_stores_equal(cs, os_)
-    assert [tuple(e) for e in _drain(wq_c)] == [tuple(e) for e in _drain(wq_o)]
-    assert cs.commit_counts == os_.commit_counts
-    # NotFound / Conflict encodings
-    res = cs.update_rows(
-        Pod.KIND, ["pod-0", "ghost"], np.asarray([0, 1], np.int64),
-        lambda r, s: None, site="fuzz.rows",
-    )
-    assert res[0] == -1 and res[1] == 0
-
-
-def test_update_rows_node_to_moves_index():
-    cs = ObjectStore()
-    cs.create(_cpod(random.Random(1), 0))
-    pod = cs.get(Pod.KIND, "pod-0")
-    start_node = pod.spec.node_name
-    table = cs.table(Pod.KIND)
-    target = "vn-moved"
-    res = cs.update_rows(
-        Pod.KIND, ["pod-0"],
-        np.asarray([pod.meta.resource_version], np.int64),
-        lambda r, s: None,
-        site="fuzz.move",
-        node_to=object_array([target]),
-    )
-    assert res[0] > 0
-    assert [p.meta.name for p in cs.list_by_node(Pod.KIND, target)] == ["pod-0"]
-    assert all(
-        p.meta.name != "pod-0" for p in cs.list_by_node(Pod.KIND, start_node)
-    )
-    assert cs.get(Pod.KIND, "pod-0").spec.node_name == target
-
-
-def test_create_rows_matches_create_batch():
-    cs, os_ = ObjectStore(), ObjectStore(columnar=())
-    table = cs.table(Pod.KIND)
-    c = table.cols
-    names = [f"cr-{i}" for i in range(6)] + ["cr-2"]  # one duplicate
-
-    def builder(rows, sel):
-        spos = sel.tolist()
-        n = len(spos)
-        c.name[rows] = object_array([names[p] for p in spos])
-        c.uid[rows] = object_array([f"uid-{p}" for p in spos])
-        c.labels[rows] = object_full(n, {})
-        c.ann[rows] = object_full(n, {})
-        c.owner[rows] = object_full(n, "")
-        c.deleted[rows] = False
-        c.role[rows] = object_full(n, PodRole.WORKER)
-        c.partition[rows] = object_full(n, "p0")
-        c.demand[rows] = object_full(n, None)
-        c.node[rows] = object_full(n, "vn-p0")
-        c.hint[rows] = object_full(n, ())
-        c.phase[rows] = PHASE_CODE[PodPhase.PENDING]
-        c.reason[rows] = object_full(n, "")
-        c.job_ids[rows] = object_full(n, ())
-        c.njobs[rows] = 0
-        c.istart[rows] = 0
-        c.ilen[rows] = 0
-        c.cstart[rows] = 0
-        c.clen[rows] = 0
-
-    res = cs.create_rows(Pod.KIND, names, builder, site="fuzz.create_rows")
-    assert (res[:6] > 0).all() and res[6] == 0  # duplicate skipped
-    for i in range(6):
-        obj = [
-            Pod(
-                meta=Meta(name=f"cr-{i}", uid=f"uid-{i}"),
-                spec=PodSpec(
-                    role=PodRole.WORKER, partition="p0", node_name="vn-p0"
-                ),
-            )
-        ][0]
-        os_.create(obj, site="fuzz.create_rows")
-    a, b = cs.list(Pod.KIND), os_.list(Pod.KIND)
-    assert [p.meta.name for p in a] == [p.meta.name for p in b]
-    for x, y in zip(a, b):
-        assert x.spec == y.spec and x.status == y.status
-    assert [p.meta.name for p in cs.list_by_node(Pod.KIND, "vn-p0")] == [
-        f"cr-{i}" for i in range(6)
-    ]
-
-
-# ------------------------------------------------- view laziness
-
-
-def test_writes_build_zero_views_until_read():
-    cs = ObjectStore()
-    rng = random.Random(3)
-    for i in range(20):
-        cs.create(_cpod(rng, i))
-    table = cs.table(Pod.KIND)
-    base = table.view_builds
-    c = table.cols
-    names = [f"pod-{i}" for i in range(20)]
-    rvs = np.asarray([int(c.rv[table.row_of[n]]) for n in names], np.int64)
-
-    def writer(rws, sel):
-        c.reason[rws] = "w"
-
-    cs.update_rows(Pod.KIND, names, rvs, writer, site="fuzz.lazy")
-    assert table.view_builds == base  # rows written, zero views built
-    assert cs.rows_written_total() >= 20
-    got = cs.get(Pod.KIND, "pod-3")
-    assert got.status.reason == "w"
-    assert table.view_builds == base + 1  # only the read materialized
-    assert cs.get(Pod.KIND, "pod-3") is got  # cached per rv
-
-
-def test_view_cache_invalidates_on_row_write():
-    cs = ObjectStore()
-    cs.create(_cpod(random.Random(5), 0))
-    a = cs.get(Pod.KIND, "pod-0")
-    table = cs.table(Pod.KIND)
-    c = table.cols
-
-    def writer(rws, sel):
-        c.reason[rws] = "fresh"
-
-    cs.update_rows(
-        Pod.KIND, ["pod-0"],
-        np.asarray([a.meta.resource_version], np.int64),
-        writer, site="fuzz.inval",
-    )
-    b = cs.get(Pod.KIND, "pod-0")
-    assert b is not a
-    assert b.status.reason == "fresh"
-    assert b.meta.resource_version == a.meta.resource_version + 1
-    # the stale snapshot the caller still holds is untouched (frozen)
-    assert a.status.reason != "fresh"
-
-
-def test_segment_heap_compaction_preserves_rows():
-    h = SegmentHeap({"v": "i8"}, cap=4)
-    h.COMPACT_FLOOR = 0
-    segs = []
-    for tag in range(6):
-        start = h.alloc(3)
-        h.v[start : start + 3] = tag
-        segs.append((tag, start, 3))
-    # retire the even tags' segments
-    live = [s for s in segs if s[0] in (1, 4)]
-    h.retire(12)
-    assert h.wasteful
-    moved = h.compact([(t, s, ln) for t, s, ln in live])
-    assert [t for t, _ in moved] == [1, 4]
-    for (tag, pos), (_, _, ln) in zip(moved, live):
-        assert (h.v[pos : pos + ln] == tag).all()
-    assert h.n == 6 and h.dead == 0
-
-
-def test_owner_cascade_crosses_columnar_and_object_kinds():
-    cs = ObjectStore()
-    job = _cjob(random.Random(7), 0)
-    cs.create(job)
-    pod = _cpod(random.Random(7), 1)
-    pod = dataclasses.replace(
-        pod, meta=dataclasses.replace(pod.meta, owner=job.meta.name)
-    )
-    cs.create(pod)
-    cs.delete(BridgeJob.KIND, job.meta.name)
-    assert cs.try_get(Pod.KIND, pod.meta.name) is None
-    assert cs.try_get(BridgeJob.KIND, job.meta.name) is None
 
 
 # ================================================ port ≡ JAX package, same ops

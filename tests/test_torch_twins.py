@@ -95,7 +95,10 @@ def _tests_in(ns: dict) -> set[str]:
     "test_colpool_write", "test_submit_bulk", "test_mirror_bulk",
     "test_coldec", "test_sim", "test_persist", "test_agent_journal",
     "test_recovery", "test_failover_process", "test_shard", "test_chaos",
-    "test_preemption",
+    "test_preemption", "test_streaming", "test_solver_service", "test_fleet",
+    "test_fleet_obs", "test_wire", "test_store_frames", "test_incremental",
+    "test_explain", "test_encoder", "test_properties", "test_manifests",
+    "test_admission", "test_policy", "test_colstore",
 ])
 def test_twin_runs_every_reference_test_it_does_not_drop(stem):
     """Each twin file carries every test of its reference file except the

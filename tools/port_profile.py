@@ -9,12 +9,20 @@ time of the ``bid_argmax`` kernels, the count of host synchronisations
 ``cudaDeviceSynchronize``) in the solve, and the operators that take the
 most host and device time. Needs a CUDA card.
 
-    python tools/port_profile.py [--rows 25] [--root DIR] [--tick | --sim [NAME] [--scale S]]
+    python tools/port_profile.py [--rows 25] [--root DIR] [--tick | --churn | --sim [NAME] [--scale S]]
 
 ``--tick`` profiles tick 1 of chip_smoke.py's tick phase instead: a
 ``PlacementScheduler`` (``backend="auction"``, rounds=8) over the typed
 headline inventory with its 50,000 jobs pending in a fresh store, after a
 warm-up tick on another store; it also prints the tick's phase times.
+``--churn`` profiles one churn tick of chip_smoke.py's streaming phase
+instead: ``churn_scenario(10_000, 50_000, seed=5, load=0.7)`` with
+``AuctionConfig(rounds=8)`` and the device engine, after the converging
+tick and two churn ticks of 1,000 jobs (``default_rng(0)``), the second
+of them timed without the profiler; it also prints both ticks' host
+phases (departures, arrivals, padding, snapshot staging, batch staging,
+the auction's host side, the wait for the device and ``free_after``, the
+keep bookkeeping).
 ``--sim`` profiles chip_smoke.py's simulator run instead: ``SimHarness``
 on ``full_50kx10k`` at full width (3 ticks, ``backend="auction"``,
 rounds=8), after a warm-up run at 5 % scale; it also prints each tick's
@@ -80,6 +88,76 @@ def tick_work():
     return sched.tick, lambda: {"phase_ms": sched.last_phase_ms, "route": sched.last_route}
 
 
+def churn_work():
+    """(one churn tick of a warmed ``StreamingSim``, its host phases and
+    those of the unprofiled tick before it). Each tick is held to the JAX
+    package's (chip_smoke.py's ``CHURN_REFERENCE``)."""
+    import numpy as np
+
+    import chip_smoke
+    import slurm_bridge_tpu_torch.solver.session as session
+    import slurm_bridge_tpu_torch.solver.streaming as streaming
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+
+    phases: dict[str, float] = {}
+
+    def timed(owner, name, phase):
+        real = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                phases[phase] = phases.get(phase, 0.0) + (time.perf_counter() - t0) * 1e3
+
+        setattr(owner, name, wrapper)
+
+    timed(streaming.StreamingSim, "depart", "depart")
+    timed(streaming, "random_scenario", "arrivals drawn")
+    timed(streaming.StreamingSim, "arrive", "arrive")
+    timed(streaming, "pad_batch", "pad")
+    timed(session.DeviceSolver, "update_snapshot", "update_snapshot")
+    timed(session, "stage_batch", "stage_batch")
+    timed(session, "_auction_kernel", "auction (host side, async)")
+    timed(session.PendingSolve, "result", "wait + free_after")
+    timed(streaming, "_tick_result", "keep")
+    timed(streaming.StreamingSim, "tick", "re-solve (sim.tick)")
+
+    sim = streaming.churn_scenario(**chip_smoke.CHURN)
+    sim.config = AuctionConfig(rounds=chip_smoke.ROUNDS)
+    sim.engine = "device"
+    rng = np.random.default_rng(0)
+    ticks = []
+
+    def run():
+        phases.clear()
+        t0 = time.perf_counter()
+        res = chip_smoke.churn_tick(sim, streaming.churn_step, rng, len(ticks))
+        torch.cuda.synchronize()
+        summary = chip_smoke.churn_summary(res)
+        if summary != chip_smoke.CHURN_REFERENCE[len(ticks)]:
+            raise SystemExit(f"churn tick {len(ticks)} {summary} differs from the JAX package's")
+        ticks.append(dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                          rows=int(res.placement.node_of.size),
+                          pinned=int(res.incumbent.sum()),
+                          summary=summary, phase_ms=dict(phases)))
+
+    for _ in range(3):  # converge, then a churn tick that warms the session
+        run()
+    unprofiled = ticks[-1]
+
+    def extra():
+        profiled = ticks[-1]
+        return {"churn_tick": len(ticks) - 1, "rows": profiled["rows"],
+                "pinned": profiled["pinned"], "summary": profiled["summary"],
+                "tick_wall_ms": profiled["wall_ms"], "phase_ms": profiled["phase_ms"],
+                "unprofiled_tick": len(ticks) - 2, "unprofiled_wall_ms": unprofiled["wall_ms"],
+                "unprofiled_phase_ms": unprofiled["phase_ms"]}
+
+    return run, extra
+
+
 def sim_work(name: str, scale: float):
     """(the scenario's run, its digest and per-tick phases), after a
     warm-up run at 5 % of its scale."""
@@ -110,6 +188,7 @@ def main() -> None:
     ap.add_argument("--rows", type=int, default=25)
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tick", action="store_true", help="profile one headline tick")
+    ap.add_argument("--churn", action="store_true", help="profile one streaming churn tick")
     ap.add_argument("--sim", nargs="?", const="full_50kx10k", default="", metavar="NAME",
                     help="profile a simulator run (default full_50kx10k)")
     ap.add_argument("--scale", type=float, default=1.0, help="the --sim scenario's scale")
@@ -121,7 +200,8 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     work, extra = (sim_work(args.sim, args.scale) if args.sim
-                   else tick_work() if args.tick else solve_work())
+                   else tick_work() if args.tick else churn_work() if args.churn
+                   else solve_work())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -138,7 +218,8 @@ def main() -> None:
     syncs = {e.key: e.count for e in events if e.key in SYNC_EVENTS}
     print(f"card: {smi}; package: {os.path.abspath(args.root)}")
     print(json.dumps({
-        "work": "sim" if args.sim else "tick" if args.tick else "solve",
+        "work": ("sim" if args.sim else "tick" if args.tick else "churn" if args.churn
+                 else "solve"),
         "wall_ms": wall_ms,
         "device_busy_ms": device_ms,
         "device_idle_share": max(0.0, 1 - device_ms / wall_ms),

@@ -27,14 +27,35 @@ carries no multi-device sweep, and the JAX package would take its
 ``shard_map`` route on a host with several devices) and adds the plan's
 shard count and the cross-shard reconcile count.
 
-chip_smoke.py holds the port's solve, tick and simulator run on the card
-to these numbers.
+``--churn``: runs the JAX package's streaming reschedule at
+chip_smoke.py's ``CHURN`` shape (BASELINE config #5: ``churn_scenario(
+10_000, 50_000, seed=5, load=0.7)``; ``--nodes``/``--jobs`` override the
+counts) on the device engine with the dense auction pinned
+(``AuctionConfig(rounds=8, candidates=0, use_pallas=False)``): one
+converging tick, then ``CHURN_TICKS`` ticks of ``CHURN_JOBS`` departing
+and arriving jobs (``np.random.default_rng(0)``). It prints each tick's
+``node_of`` digest, kept, preempted and started shard counts and
+stability (chip_smoke.py's ``churn_summary``).
+
+``--place``: runs the JAX package's ``PlacementSolverServicer`` (launched
+with the same dense config, ``solver="auction"``) on a ``PlaceRequest`` for
+the typed headline inventory (``random_inventory``, 57,635 shards ×
+10,000 nodes; ``--nodes``/``--jobs`` override), built with chip_smoke.py's
+``place_request`` in the JAX package's messages, then on the same request
+with the busiest node drained. It prints each Place's assignment digest
+(``place_digest``), response digest (``response_digest``: the serialized
+response with ``solve_ms`` zeroed), placed count and drained node.
+
+chip_smoke.py holds the port's solve, tick, simulator, streaming and
+sidecar runs on the card to these numbers.
 
     JAX_PLATFORMS=cpu python tools/port_reference.py --nodes 2000 --jobs 10000
     JAX_PLATFORMS=cpu python tools/port_reference.py --tick --nodes 10000 --jobs 50000
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k_crash
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_500kx100k --scale 0.1
+    JAX_PLATFORMS=cpu python tools/port_reference.py --churn
+    JAX_PLATFORMS=cpu python tools/port_reference.py --place --nodes 10000 --jobs 50000
 """
 
 from __future__ import annotations
@@ -51,7 +72,20 @@ import time
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import InventoryClient, tick_digest, tick_world  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    CHURN,
+    CHURN_TICKS,
+    InventoryClient,
+    busiest_node,
+    churn_summary,
+    churn_tick,
+    drained_request,
+    place_digest,
+    place_request,
+    response_digest,
+    tick_digest,
+    tick_world,
+)
 from slurm_bridge_tpu.solver.auction import AuctionConfig, auction_place  # noqa: E402
 from slurm_bridge_tpu.solver.snapshot import random_scenario  # noqa: E402
 
@@ -134,10 +168,61 @@ def run_sim(name: str, scale: float) -> dict:
     return out
 
 
+def run_churn(num_nodes: int, num_jobs: int) -> dict:
+    import numpy as np
+
+    from slurm_bridge_tpu.solver.streaming import churn_scenario, churn_step
+
+    shape = dict(CHURN, num_nodes=num_nodes, num_jobs=num_jobs)
+    sim = churn_scenario(**shape)
+    sim.config = AuctionConfig(rounds=8, candidates=0, use_pallas=False)
+    sim.engine = "device"
+    rng = np.random.default_rng(0)
+    ticks = []
+    for i in range(CHURN_TICKS + 1):
+        t0 = time.perf_counter()
+        res = churn_tick(sim, churn_step, rng, i)
+        ticks.append({**churn_summary(res), "rows": int(res.placement.node_of.size),
+                      "cpu_seconds_wall": round(time.perf_counter() - t0, 3)})
+    return {"churn": shape, "config": "AuctionConfig(rounds=8, candidates=0, "
+            "use_pallas=False), engine='device'", "ticks": ticks}
+
+
+def run_place(num_nodes: int, num_jobs: int, seed: int) -> dict:
+    from slurm_bridge_tpu.solver.service import PlacementSolverServicer
+    from slurm_bridge_tpu.solver.snapshot import random_inventory
+    from slurm_bridge_tpu.wire import convert, pb
+
+    partitions, nodes, demands = random_inventory(num_nodes, num_jobs, seed=seed, **SCENARIO)
+    request = pb.PlaceRequest.FromString(
+        place_request(pb, convert, partitions, nodes, demands).SerializeToString()
+    )
+    servicer = PlacementSolverServicer(AuctionConfig(rounds=8, candidates=0, use_pallas=False))
+    out = []
+    drained = ""
+    for req in ("first", "drained"):
+        if req == "drained":
+            drained = busiest_node(resp)
+            request = drained_request(pb, request, drained)
+        t0 = time.perf_counter()
+        resp = servicer.Place(request, None)
+        out.append({
+            "place_sha256": place_digest(resp),
+            "response_sha256": response_digest(pb, resp),
+            "placed": resp.placed, "total": resp.total, "solver": resp.solver,
+            "cpu_seconds_wall": round(time.perf_counter() - t0, 3),
+        })
+    return {"place": {"nodes": num_nodes, "jobs": num_jobs, "seed": seed, **SCENARIO},
+            "config": "AuctionConfig(rounds=8, candidates=0, use_pallas=False), "
+            "solver='auction'", "drained": drained, "places": out}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--nodes", type=int, default=2000)
-    ap.add_argument("--jobs", type=int, default=10000)
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="node count (default 2000; --churn: CHURN's 10000)")
+    ap.add_argument("--jobs", type=int, default=None,
+                    help="job count (default 10000; --churn: CHURN's 50000)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--tick", action="store_true",
                     help="run two PlacementScheduler ticks over the typed inventory")
@@ -145,7 +230,26 @@ def main() -> None:
                     help="run the simulator's scenario NAME with the auction pinned")
     ap.add_argument("--scale", type=float, default=1.0,
                     help="the --sim scenario's scale")
+    ap.add_argument("--churn", action="store_true",
+                    help="run the streaming reschedule at chip_smoke.py's CHURN shape")
+    ap.add_argument("--place", action="store_true",
+                    help="run the solver sidecar's Place on the typed inventory")
     args = ap.parse_args()
+    if args.churn:
+        args.nodes = args.nodes or CHURN["num_nodes"]
+        args.jobs = args.jobs or CHURN["num_jobs"]
+    args.nodes = args.nodes or 2000
+    args.jobs = args.jobs or 10000
+    if args.churn or args.place:
+        res = (
+            run_churn(args.nodes, args.jobs) if args.churn
+            else run_place(args.nodes, args.jobs, args.seed)
+        )
+        print(json.dumps({
+            **res,
+            "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
+        }))
+        return
     if args.sim:
         res = run_sim(args.sim, args.scale)
         print(json.dumps({
