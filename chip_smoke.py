@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port: the placement solve, the
 placement tick, the bridge's job lifecycle on the simulated cluster, its
-recovery from a crash, the sharded tick, the streaming reschedule and the
-placement-solver sidecar.
+recovery from a crash, the sharded tick, the streaming reschedule, the
+placement-solver sidecar and the bridge's daemons.
 
     python3 chip_smoke.py
 
@@ -107,9 +107,28 @@ which fails the run:
    ``SolverInfo`` must report
    ``cuda`` and one device. (The gRPC transport and the fleet are not
    driven here: the card's machine has no ``grpc``.)
-11. hold the card against the JAX package's result on a reduced scenario
+11. the bridge's daemons at the headline inventory's width: a fake-Slurm
+    state directory (``tests/fakeslurm`` first on ``PATH``) whose
+    ``cluster.json`` holds the 10,000 headline nodes (:func:`fake_cluster`,
+    drained nodes as ``DRAINED``), the port's agent
+    ``WorkloadServicer(SlurmClient())``, and the port's
+    ``Bridge(scheduler_backend="auction", AuctionConfig(rounds=8,
+    candidates=0), kubelet_port=0)`` reaching it over a
+    :class:`LoopbackChannel` (the card's machine has no ``grpc``; every
+    request and response crosses as codec bytes). :data:`BRIDGE`'s 120
+    jobs (the headline's first 120 demands, :func:`bridge_inventory`) go
+    in through ``Bridge.submit``, each script echoing its marker; once every
+    sizecar pod exists one scheduler tick places them on the card
+    (:func:`bridge_first_tick`): 8 kernel launches, each held bit-exact
+    against its plain version on its own operands and timed again on them,
+    and the digest of (pod, node, placement hint) must equal the JAX
+    package's (:data:`BRIDGE_REFERENCE`). Then the daemons start and run
+    until every job has Succeeded with its stdout fetched (each fetched
+    file holds its marker); prints the wall time from the first submit to
+    the last, and one job's log read over the kubelet HTTP server;
+12. hold the card against the JAX package's result on a reduced scenario
     (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
-12. print times with the card's name and power limit, and the run's wall
+13. print times with the card's name and power limit, and the run's wall
     time.
 
 The second-to-last lines are the kernels' JSON record and the
@@ -230,6 +249,23 @@ PLACE_REFERENCE = dict(
              response_sha256="3888ca1bac3f3e4163a9eea238a5218dd73658d78ed2a83db932f538f21c6b07"),
     ],
 )
+#: The bridge's daemons at the headline inventory's width: 10,000 nodes
+#: (``random_inventory``'s headline shape), and the first ``num_jobs`` of its
+#: 50,000 demands as ``BridgeJob``s (:func:`bridge_inventory`). The job count
+#: is the phase's scale: the fake Slurm CLI reads every job record once per
+#: node it lists, so each inventory fetch the providers make costs O(nodes ×
+#: jobs) (``tools/fakeslurm_cost.py`` times it): on the card's machine 1,000
+#: jobs outran the phase's deadline and 250 took ~4 minutes to succeed.
+BRIDGE = dict(num_nodes=10_000, num_jobs=120)
+#: The JAX package's ``Bridge`` first placing tick at :data:`BRIDGE` over the
+#: fake Slurm CLI (pods bound, :func:`bridge_digest`), from
+#: ``JAX_PLATFORMS=cpu python tools/port_reference.py --bridge``.
+BRIDGE_REFERENCE = dict(
+    placed=120,
+    bridge_sha256="580665ab440eafa64317089bed2f3af7b8d8754266eb71f5624fbbfdd7b6083c",
+)
+#: How long the bridge phase waits for every job to succeed and be fetched.
+BRIDGE_DEADLINE_S = 600
 #: What the JAX package's default (native-routed on the CPU) run of
 #: ``full_50kx10k`` binds over its 3 ticks: printed beside the port's
 #: auto-routed tick for reading, not compared.
@@ -471,6 +507,166 @@ def drained_request(pb, request, name: str):
         if n.name == name:
             n.state = "DRAIN"
     return req
+
+
+class LoopbackChannel:
+    """A channel to a servicer in this process, for a machine without
+    grpc: the port's ``ServiceClient`` builds its stubs on it as it builds
+    them on a ``grpc.Channel``. Every request and response crosses as the
+    bytes the stub's serializers write (the port's codec, byte for byte
+    what ``workload_pb2`` writes), parsed on the far side with the
+    method's message classes, and the servicer's method runs with the
+    port's ``LocalContext``, whose ``abort`` raises the port's
+    ``RpcError`` — what a stub on a grpc channel raises."""
+
+    def __init__(self, servicer, service_name: str = "WorkloadManager"):
+        from slurm_bridge_tpu_torch.wire.rpc import service_methods
+
+        self.servicer = servicer
+        full_name, specs = service_methods(service_name)
+        self._specs = {f"/{full_name}/{m.name}": m for m in specs}
+        self.calls = 0
+
+    def _method(self, method, request_serializer, response_deserializer):
+        from slurm_bridge_tpu_torch.wire.rpc import LocalContext
+
+        spec = self._specs[method]
+        fn = getattr(self.servicer, spec.name)
+
+        def parse(req):
+            return spec.req_cls.FromString(request_serializer(req))
+
+        def answer(resp):
+            return response_deserializer(
+                resp if isinstance(resp, bytes) else resp.SerializeToString())
+
+        def call(request, timeout=None, metadata=None):
+            self.calls += 1
+            req = (parse(r) for r in request) if spec.request_streaming else parse(request)
+            resp = fn(req, LocalContext())
+            return (answer(r) for r in resp) if spec.response_streaming else answer(resp)
+
+        return call
+
+    # grpc.Channel's four stub factories: the method's spec says which
+    # sides stream
+    unary_unary = unary_stream = stream_unary = stream_stream = _method
+
+    def close(self) -> None:
+        pass
+
+
+@contextlib.contextmanager
+def loopback_dial(servicer):
+    """Within the block, the port's ``Bridge`` dials a
+    :class:`LoopbackChannel` to ``servicer`` wherever it would open a grpc
+    channel to its agent (``bridge/runtime.py``, the one place the bridge
+    dials its agent). Yields the channels it handed out."""
+    import slurm_bridge_tpu_torch.bridge.runtime as runtime
+
+    real, channels = runtime.dial, []
+
+    def dial(endpoint):
+        channels.append(LoopbackChannel(servicer))
+        return channels[-1]
+
+    runtime.dial = dial
+    try:
+        yield channels
+    finally:
+        runtime.dial = real
+
+
+def bridge_inventory(random_inventory, num_nodes: int, num_jobs: int, seed: int = 42):
+    """The bridge phase's world from a package's ``random_inventory``: the
+    inventory of ``num_nodes`` nodes at the headline's shape, and the first
+    ``num_jobs`` demands of its ``5 × num_nodes`` jobs — the headline's
+    jobs per node (50,000 on 10,000), so each job asks what a headline job
+    asks (``random_inventory(10_000, 1_000)`` would spread the headline's
+    load over 1,000 jobs of several hundred CPUs each, more than any node
+    has)."""
+    partitions, nodes, demands = random_inventory(
+        num_nodes, 5 * num_nodes, seed=seed, load=HEADLINE["load"],
+        gpu_fraction=HEADLINE["gpu_fraction"], gang_fraction=HEADLINE["gang_fraction"],
+    )
+    return partitions, nodes, demands[:num_jobs]
+
+
+def fake_cluster(partitions, nodes) -> dict:
+    """``cluster.json`` for the fake Slurm CLI (``tests/fakeslurm``) from
+    typed inventory lists: every partition with its nodes (the first the
+    default), every node with its CPUs, memory, GPUs, features, the
+    allocation it starts with and its state (a drained node stays in, as
+    ``DRAINED``)."""
+    return {
+        "partitions": {
+            p.name: {"nodes": list(p.nodes), **({"default": True} if i == 0 else {})}
+            for i, p in enumerate(partitions)
+        },
+        "nodes": {
+            n.name: {"cpus": n.cpus, "memory_mb": n.memory_mb, "alloc_cpus": n.alloc_cpus,
+                     "alloc_memory_mb": n.alloc_memory_mb, "gpus": n.gpus,
+                     "gpu_type": n.gpu_type, "features": list(n.features), "state": n.state}
+            for n in nodes
+        },
+    }
+
+
+def job_marker(name: str) -> str:
+    return f"sbt-marker-{name}"
+
+
+def bridge_jobs(spec_cls, demands, result_to: str = "") -> list:
+    """(name, spec) per demand, in a package's ``BridgeJobSpec``: the
+    demand's partition, node count (gangs included), CPUs, memory per CPU,
+    GPUs (``gres``) and priority, a script that echoes the job's marker,
+    and its results fetched into ``result_to``."""
+    out = []
+    for j, d in enumerate(demands):
+        name = f"job{j:05d}"
+        out.append((name, spec_cls(
+            partition=d.partition, sbatch_script=f"#!/bin/sh\necho {job_marker(name)}\n",
+            nodes=d.nodes, cpus_per_task=d.cpus_per_task, mem_per_cpu_mb=d.mem_per_cpu_mb,
+            gres=d.gres, priority=d.priority, result_to=result_to,
+        )))
+    return out
+
+
+def bridge_digest(objects, store) -> str:
+    """sha256 over the sizecar pods sorted by name of (name, bound node,
+    placement hint): what a tick decided for every job. ``objects`` is a
+    package's ``bridge.objects``."""
+    h = hashlib.sha256()
+    pods = [p for p in store.list(objects.Pod.KIND) if p.spec.role == objects.PodRole.SIZECAR]
+    for p in sorted(pods, key=lambda p: p.meta.name):
+        h.update("\x1f".join((p.meta.name, p.spec.node_name,
+                              ",".join(p.spec.placement_hint))).encode() + b"\n")
+    return h.hexdigest()
+
+
+def bridge_first_tick(bridge, objects, jobs) -> dict:
+    """The placing tick of a ``Bridge`` whose daemons have not started:
+    every job submitted through ``Bridge.submit``, the operator's sweep
+    creating every sizecar pod, the configurator bringing up one Ready
+    virtual node per partition, then one ``scheduler.tick()`` on that fixed
+    store — the only placement a digest can hold while the daemons' threads
+    run. Returns the pods bound, the digest (:func:`bridge_digest`), the
+    tick's route and phases."""
+    for name, spec in jobs:
+        bridge.submit(name, spec)
+    names = [n for n, _ in jobs]
+    for key in bridge.operator.sweep(names):
+        bridge.operator.reconcile(key)
+    sizecars = [p for p in bridge.store.list(objects.Pod.KIND)
+                if p.spec.role == objects.PodRole.SIZECAR]
+    require(len(sizecars) == len(jobs), f"{len(sizecars)} sizecar pods for {len(jobs)} jobs")
+    bridge.configurator.reconcile()
+    t0 = time.perf_counter()
+    placed = bridge.scheduler.tick()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return dict(placed=placed, digest=bridge_digest(objects, bridge.store),
+                route=bridge.scheduler.last_route, wall_ms=wall_ms,
+                phase_ms=dict(bridge.scheduler.last_phase_ms))
 
 
 def check_feasible(snap, batch, pl) -> None:
@@ -1107,6 +1303,140 @@ def sidecar_phase(kern, smi: str) -> dict:
     return dict(places=places, errs=errs, launches=launches, kernel=kernel)
 
 
+def kubelet_log(port: int, pod: str) -> bytes:
+    """A pod's log read over the kubelet HTTP API (``bridge/vkhttp.py``):
+    ``GET /containerLogs/default/<pod>/main``, chunked."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", f"/containerLogs/default/{pod}/main")
+        resp = conn.getresponse()
+        body = resp.read()
+        require(resp.status == 200, f"kubelet log of {pod}: HTTP {resp.status} {body[:200]!r}")
+        return body
+    finally:
+        conn.close()
+
+
+def bridge_phase(kern, smi: str) -> dict:
+    """Phase 11: the bridge's daemons over the fake Slurm CLI at the
+    headline inventory's width (module docstring). Returns what the
+    kernels line and the summary print."""
+    import os
+    import pathlib
+    import shutil
+    import tempfile
+
+    import slurm_bridge_tpu_torch.bridge.objects as objects
+    from slurm_bridge_tpu_torch.agent import SlurmClient, WorkloadServicer
+    from slurm_bridge_tpu_torch.bridge import Bridge, BridgeJobSpec, FetchState, JobState
+    from slurm_bridge_tpu_torch.bridge.operator import sizecar_name
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+    from slurm_bridge_tpu_torch.solver.snapshot import random_inventory
+
+    fakeslurm = pathlib.Path(__file__).resolve().parent / "tests" / "fakeslurm"
+    require((fakeslurm / "sbatch").is_file(), f"no fake Slurm CLI at {fakeslurm}")
+    tmp = tempfile.mkdtemp(prefix="sbt-daemons-")
+    state, results = os.path.join(tmp, "state"), os.path.join(tmp, "results")
+    os.makedirs(state)
+    partitions, nodes, demands = bridge_inventory(random_inventory, BRIDGE["num_nodes"],
+                                                  BRIDGE["num_jobs"])
+    with open(os.path.join(state, "cluster.json"), "w") as f:
+        json.dump(fake_cluster(partitions, nodes), f)
+    saved_env = {k: os.environ.get(k) for k in ("SBT_FAKESLURM_STATE", "PATH")}
+    os.environ["SBT_FAKESLURM_STATE"] = state
+    os.environ["PATH"] = f"{fakeslurm}{os.pathsep}{os.environ['PATH']}"
+    jobs = bridge_jobs(BridgeJobSpec, demands, results)
+    log(f"  fake Slurm: {len(nodes)} nodes in {len(partitions)} partitions "
+        f"({sum(n.state == 'DRAINED' for n in nodes)} drained), {len(jobs)} jobs "
+        f"({sum(d.nodes > 1 for d in demands)} gangs, {sum(bool(d.gres) for d in demands)} "
+        f"asking GPUs)")
+    log("  transport loopback (no grpc on this machine)")
+    servicer = WorkloadServicer(SlurmClient(), tail_poll_interval=0.02)
+    bridge = None
+    try:
+        with loopback_dial(servicer) as channels:
+            bridge = Bridge("loopback", scheduler_backend="auction",
+                            auction_config=AuctionConfig(rounds=ROUNDS, candidates=0),
+                            kubelet_port=0)
+        require(len(channels) == 1, f"{len(channels)} channels dialled")
+        t_submit = time.perf_counter()
+        before = kern.LAUNCHES
+        with kernel_events(keep_operands=True, timed=False) as calls:
+            tick = bridge_first_tick(bridge, objects, jobs)
+        tick["launches"] = kern.LAUNCHES - before
+        phases = ", ".join(f"{k} {v:.1f}" for k, v in tick["phase_ms"].items())
+        log(f"  placing tick: route {tick['route']}, bound {tick['placed']}/{len(jobs)}, kernel "
+            f"launches {tick['launches']}, digest {tick['digest'][:16]}…; wall "
+            f"{tick['wall_ms']:.1f} ms ({phases} ms) [{smi}]")
+        require(tick["route"] == "auction", f"the placing tick routed {tick['route']}")
+        require(tick["launches"] == ROUNDS and len(calls) == ROUNDS,
+                f"{tick['launches']} kernel launches in the placing tick")
+        require(tick["placed"] == BRIDGE_REFERENCE["placed"],
+                f"bound {tick['placed']}, the JAX package {BRIDGE_REFERENCE['placed']}")
+        require(tick["digest"] == BRIDGE_REFERENCE["bridge_sha256"],
+                f"placing tick digest {tick['digest']} differs from the JAX package's")
+
+        # the daemons: operator, configurator and providers, scheduler
+        # ticker, fetch worker, kubelet server and the admission pump
+        bridge.start()
+        done_at, next_note = {}, time.perf_counter() + 15
+        deadline = time.perf_counter() + BRIDGE_DEADLINE_S
+        while len(done_at) < len(jobs):
+            require(time.perf_counter() < deadline,
+                    f"{len(done_at)}/{len(jobs)} jobs done after {BRIDGE_DEADLINE_S} s")
+            now = time.perf_counter()
+            for job in bridge.list():
+                st = job.status
+                if job.meta.name in done_at:
+                    continue
+                require(st.state != JobState.FAILED, f"job {job.meta.name} failed")
+                if st.state == JobState.SUCCEEDED and st.fetch_result in (
+                        FetchState.SUCCEEDED, FetchState.FAILED):
+                    require(st.fetch_result == FetchState.SUCCEEDED,
+                            f"job {job.meta.name}'s stdout fetch failed")
+                    done_at[job.meta.name] = now
+            if now >= next_note:
+                log(f"    {now - t_submit:.0f} s: {len(done_at)}/{len(jobs)} jobs succeeded "
+                    f"and fetched")
+                next_note = now + 15
+            time.sleep(0.1)
+        wall_s = max(done_at.values()) - t_submit
+        fetched = os.listdir(results)
+        for name, _ in jobs:
+            files = [f for f in fetched if f.startswith(f"{name}-")]
+            require(files, f"no fetched stdout for {name}")
+            with open(os.path.join(results, files[0])) as f:
+                require(job_marker(name) in f.read(), f"{name}'s fetched stdout lacks its marker")
+        log(f"  every job Succeeded with its stdout fetched (marker checked): "
+            f"{wall_s:.1f} s from the first submit to the last [{smi}]")
+
+        name = jobs[0][0]
+        body = kubelet_log(bridge.kubelet_server.port, sizecar_name(name))
+        require(job_marker(name).encode() in body, f"kubelet log of {name} lacks its marker")
+        log(f"  kubelet server on 127.0.0.1:{bridge.kubelet_server.port}: "
+            f"/containerLogs/default/{sizecar_name(name)}/main holds {job_marker(name)!r}; "
+            f"{channels[0].calls} loopback calls")
+    finally:
+        if bridge is not None:
+            bridge.stop()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the main path's launches, read before the checks below add their own
+    launches = kern.LAUNCHES
+    errs = []
+    for j, r in enumerate(calls):
+        p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
+        errs.append(compare_recorded(kern, r, f"bridge tick call {j} ({n},{p})"))
+    kernel = time_calls(kern, calls, "bridge tick", smi)
+    return dict(tick=tick, wall_s=wall_s, errs=errs, launches=launches, kernel=kernel)
+
+
 def time_calls(kern, calls, label: str, smi: str) -> dict:
     """Each recorded kernel call of one solve timed again on its own
     operands and live mask (gated CUDA events), beside the cells its live
@@ -1346,7 +1676,16 @@ def main() -> int:
             f"{sidecar_launches} kernel launches in the sidecar phase")
     errs += sidecar["errs"]
 
-    # 11. the JAX package's result on the reduced scenario
+    # 11. the bridge's daemons over the fake Slurm CLI
+    log(f"[11] main path: the bridge's daemons — agent, Bridge, fetcher, kubelet server — over the "
+        f"fake Slurm CLI with {BRIDGE['num_nodes']} nodes and {BRIDGE['num_jobs']} jobs")
+    kern.LAUNCHES = 0
+    daemons = bridge_phase(kern, smi)
+    daemons_launches = daemons["launches"]
+    require(daemons_launches >= ROUNDS, f"{daemons_launches} kernel launches in the bridge phase")
+    errs += daemons["errs"]
+
+    # 12. the JAX package's result on the reduced scenario
     ref_snap, ref_batch = random_scenario(
         REFERENCE["nodes"], REFERENCE["jobs"], seed=42, load=0.7,
         gpu_fraction=0.15, gang_fraction=0.05,
@@ -1357,38 +1696,44 @@ def main() -> int:
     ref_jobs = len(ref_pl.by_job(ref_batch))
     rel = abs(ref_jobs - REFERENCE["placed_jobs"]) / REFERENCE["placed_jobs"]
     match = digest(ref_pl.node_of) == REFERENCE["node_of_sha256"]
-    log(f"[11] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
+    log(f"[12] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
         f"vs JAX {REFERENCE['placed_jobs']} (rel {rel:.5f}); node_of digest matches JAX: {match}")
     require(rel <= 0.005, rel)
 
-    # 12. times
+    # 13. times
     p50 = statistics.median(wall_ms)
-    log(f"[12] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
+    log(f"[13] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
         f"(min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); kernel {kernel_ms:.4f} ms/launch "
         f"(bound {bound_ms:.4f}, ceiling {ceiling_ms:.4f}), {ms_per_solve:.4f} ms per solve; "
         f"total run {time.perf_counter() - t_start:.0f} s")
     for i, t in enumerate(tick["ticks"]):
-        log(f"[12] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
+        log(f"[13] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in t["phase_ms"].items())
             + f"; {t['launches']} kernel launches")
     for label, run, launches in (("full_50kx10k", sim, sim_launches),
                                  ("full_50kx10k_crash", crash, crash_launches),
                                  (f"full_500kx100k({SHARD_SCALE})", shard, shard_launches)):
         tm = run["result"].timing
-        log(f"[12] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
+        log(f"[13] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
             + f" (p50 over {len(run['ticks'])} ticks); {launches} kernel launches; "
             f"phase wall {run['wall_s']:.1f} s")
-    log(f"[12] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; shard solves "
+    log(f"[13] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; shard solves "
         f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms")
-    log(f"[12] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
+    log(f"[13] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
         f"re-solve ms {[round(t['solve_ms'], 1) for t in churn['ticks']]}, "
         f"{churn_launches} kernel launches, kernel {churn['kernel']['ms_per_solve']:.4f} ms per "
         f"solve on churn tick 1; auto route {churn['auto_route']}")
-    log(f"[12] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
+    log(f"[13] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
         f"(solve {[round(t['solve_ms'], 1) for t in sidecar['places']]}), "
         f"{sidecar_launches} kernel launches, kernel {sidecar['kernel']['ms_per_solve']:.4f} ms "
-        f"per solve on Place 0; total run {time.perf_counter() - t_start:.1f} s")
+        f"per solve on Place 0")
+    tk = daemons["tick"]
+    log(f"[13] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in tk["phase_ms"].items())
+        + f"), kernel {daemons['kernel']['ms_per_solve']:.4f} ms over {ROUNDS} launches; "
+        f"{BRIDGE['num_jobs']} jobs submit to last Succeeded {daemons['wall_s']:.1f} s; "
+        f"{daemons_launches} kernel launches; total run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "bid_argmax",
@@ -1411,6 +1756,8 @@ def main() -> int:
         "launches_per_churn_tick": [t["launches"] for t in churn["ticks"]]
         + [churn["auto_launches"]],
         "launches_per_place": [t["launches"] for t in sidecar["places"]],
+        "launches_bridge_daemons": daemons_launches,
+        "bridge_tick_kernel_ms": daemons["kernel"]["ms_per_solve"],
         "churn_kernel_ms_per_solve": churn["kernel"]["ms_per_solve"],
         "place_kernel_ms_per_solve": sidecar["kernel"]["ms_per_solve"],
         "tick_kernel_ms": tick["auto"]["kernel_ms"],

@@ -1,15 +1,20 @@
-"""The login-node agent's durable side: the Slurm CLI driver and the
-agent journal.
+"""The login-node agent: Slurm CLI driver + WorkloadManager gRPC server.
 
-The port carries :mod:`~slurm_bridge_tpu_torch.agent.cli` (``SlurmClient``
-over the real ``sbatch``/``scontrol``/``sacct``, the ``WorkloadDriver``
-seam) and :mod:`~slurm_bridge_tpu_torch.agent.journal` (the crash-safe
-submit ledger the simulated agent replays after an ``agent_crash``). The
-WorkloadManager gRPC server and its ``yaml`` partition config come with
-the transport (ROADMAP Queue 1 item 4).
+Reference parity: pkg/slurm-agent (CLI client slurm.go, gRPC server
+api/slurm.go) and cmd/slurm-agent (main). The driver interface is pluggable
+(the reference hints at this with its wlmName abstraction api/slurm.go:355):
+anything implementing :class:`cli.WorkloadDriver` can back the server.
+
+The servicer aborts with the port's ``wire.StatusCode``, so it imports on a
+machine without ``grpc`` and serves in process (``wire.rpc.LocalContext``)
+as well as over the transport (``wire.serve``); the partition config
+imports ``yaml`` only when it parses one. :class:`AgentJournal` is the
+crash-safe submit ledger behind ``--journal``.
 """
 
 from slurm_bridge_tpu_torch.agent.cli import SlurmClient, SlurmError, WorkloadDriver
+from slurm_bridge_tpu_torch.agent.server import WorkloadServicer
+from slurm_bridge_tpu_torch.agent.config import load_partition_config
 from slurm_bridge_tpu_torch.agent.journal import AgentJournal
 
 __all__ = [
@@ -17,4 +22,6 @@ __all__ = [
     "SlurmClient",
     "SlurmError",
     "WorkloadDriver",
+    "WorkloadServicer",
+    "load_partition_config",
 ]

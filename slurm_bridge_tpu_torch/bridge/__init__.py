@@ -1,15 +1,14 @@
-"""The bridge control plane's placement tick: API objects, the object
-store, and the scheduler that binds pending sizecar pods to virtual nodes.
+"""The bridge control plane: API objects, object store, reconcilers.
 
-``ObjectStore`` stands in for the API server (optimistic concurrency,
-watches, columnar hot state); ``PlacementScheduler`` takes one batched
-inventory snapshot per tick and solves the whole pending queue with the
-port's solver. The operator, virtual-node providers and configurator
-(``bridge.operator``, ``bridge.vnode``, ``bridge.configurator``), the
-store's snapshot and WAL (``bridge.persist``) and leader election
-(``bridge.leader``) are their own modules; the ``Bridge`` runtime that
-wires them to a live agent needs the gRPC transport and is not ported
-yet (ROADMAP Queue 1 item 4).
+This layer reproduces the reference's Kubernetes-side machinery (SURVEY.md
+§2.2-§2.6) as a standalone in-process control plane: the `BridgeJob` object
+mirrors the `SlurmBridgeJob` CRD, `ObjectStore` stands in for the API
+server (optimistic concurrency + watches), and the operator / virtual-node
+/ scheduler / configurator / fetcher components reproduce the five call
+stacks of SURVEY.md §3 — with the per-pod `scontrol` hot loop replaced by
+one batched snapshot per scheduler tick fed to the port's placement
+solver, whose device auction runs on the card unless the caller asks for
+the CPU (``Bridge(device="cpu")`` or ``SBT_BACKEND=cpu``).
 """
 
 from slurm_bridge_tpu_torch.bridge.objects import (
@@ -37,7 +36,10 @@ from slurm_bridge_tpu_torch.bridge.store import (
 )
 from slurm_bridge_tpu_torch.bridge.scheduler import PlacementScheduler
 
+from slurm_bridge_tpu_torch.bridge.runtime import Bridge
+
 __all__ = [
+    "Bridge",
     "BridgeJob",
     "FetchState",
     "JobState",

@@ -381,8 +381,13 @@ class _PortErrorStream:
 def _port_errors(multicallable, response_streaming: bool):
     """Wrap a grpc multicallable so its failures raise the port's
     :class:`RpcError` — what :func:`call_with_retries` and every caller of
-    the port catch."""
-    import grpc
+    the port catch. Where grpc is not installed the channel is not grpc's
+    (an in-process one, whose calls raise the port's error themselves), and
+    its multicallable is returned as it is."""
+    try:
+        import grpc
+    except ImportError:
+        return multicallable
 
     def call(request, timeout=None, metadata=None):
         try:

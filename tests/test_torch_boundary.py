@@ -152,6 +152,40 @@ ENTRY_POINT_MODULES = [
 ]
 
 
+#: the bridge's daemons: the agent server and its main, the Bridge
+#: runtime, the result fetcher, the daemon mains and the demo, the typed
+#: client, the kube API client, the kubelet HTTP server and their
+#: utilities. Each imports on the card's machine (no grpc, protobuf or
+#: yaml): the servicer aborts with the port's StatusCode, the fetcher
+#: catches the port's RpcError, the codec and the partition config import
+#: yaml where they read one, and the TLS paths (kubeapi's ``ssl``, certs'
+#: ``cryptography``) import what they need only when a certificate is
+#: made or a TLS connection opened
+DAEMON_MODULES = [
+    "slurm_bridge_tpu_torch.utils",
+    "slurm_bridge_tpu_torch.utils.fs",
+    "slurm_bridge_tpu_torch.utils.inotify",
+    "slurm_bridge_tpu_torch.utils.tail",
+    "slurm_bridge_tpu_torch.utils.flags",
+    "slurm_bridge_tpu_torch.utils.certs",
+    "slurm_bridge_tpu_torch.utils.codec",
+    "slurm_bridge_tpu_torch.agent",
+    "slurm_bridge_tpu_torch.agent.config",
+    "slurm_bridge_tpu_torch.agent.tailer",
+    "slurm_bridge_tpu_torch.agent.server",
+    "slurm_bridge_tpu_torch.agent.main",
+    "slurm_bridge_tpu_torch.bridge",
+    "slurm_bridge_tpu_torch.bridge.client",
+    "slurm_bridge_tpu_torch.bridge.kubeapi",
+    "slurm_bridge_tpu_torch.bridge.vkhttp",
+    "slurm_bridge_tpu_torch.bridge.vnconfig",
+    "slurm_bridge_tpu_torch.bridge.fetcher",
+    "slurm_bridge_tpu_torch.bridge.runtime",
+    "slurm_bridge_tpu_torch.bridge.main",
+    "slurm_bridge_tpu_torch.bridge.demo",
+]
+
+
 def _foreign_after_import(mod: str) -> list[str]:
     """Modules of JAX, of the JAX package, of grpc, of protobuf or of yaml
     in ``sys.modules`` after a fresh interpreter imports ``mod``."""
@@ -222,6 +256,29 @@ def test_entry_points_import_no_jax_grpc_protobuf_or_yaml(mod):
     import on the card's machine, which has neither grpc, protobuf nor
     yaml."""
     assert _foreign_after_import(mod) == []
+
+
+@pytest.mark.parametrize("mod", DAEMON_MODULES)
+def test_daemons_import_no_jax_grpc_protobuf_or_yaml(mod):
+    """The agent server, the Bridge runtime and their utilities import on
+    the card's machine, which has neither grpc, protobuf nor yaml."""
+    assert _foreign_after_import(mod) == []
+
+
+def test_every_reference_module_but_the_unported_has_a_port():
+    """Every module of the JAX package has a port module at the same path,
+    except the multi-device sweep (ROADMAP Queue 1 item 8), the TPU health
+    record only the JAX package's bench reads, and the protobuf module
+    whose counterparts are ``wire/messages.py`` and ``wire/schema.py``."""
+    ref = _PKG.parent / "slurm_bridge_tpu"
+    missing = sorted(
+        str(p.relative_to(ref)) for p in ref.rglob("*.py")
+        if not (_PKG / p.relative_to(ref)).exists()
+    )
+    assert missing == [
+        "parallel/distributed.py", "parallel/mesh.py", "solver/sharded.py",
+        "utils/chipstate.py", "wire/workload_pb2.py",
+    ]
 
 
 def test_chip_smoke_imports_no_jax():

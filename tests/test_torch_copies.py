@@ -378,6 +378,80 @@ ALLOWED = {
         ('        env = {**os.environ, "JAX_PLATFORMS": "cpu"}\n',
          '        env = {**os.environ, "SBT_BACKEND": "cpu"}\n'),
     ],
+    # ---- the bridge's daemons: the agent server, the Bridge runtime, the
+    # result fetcher, the kube API client, the kubelet HTTP server and
+    # their utilities ----
+    "utils/fs.py": [],
+    "utils/inotify.py": [],
+    "utils/tail.py": [],
+    "utils/flags.py": [],
+    # cryptography stays imported where a certificate is made
+    "utils/certs.py": [],
+    # no yaml on the card's machine: imported where a config is read or
+    # written
+    "utils/codec.py": [
+        ("import typing\n\nimport yaml\n\n", "import typing\n\n"),
+        ('    """YAML → dataclass, strict first, lenient on unknown-field failure."""\n'
+         "    raw = yaml",
+         '    """YAML → dataclass, strict first, lenient on unknown-field failure."""\n'
+         "    import yaml\n\n    raw = yaml"),
+        ("def encode_yaml_config(obj) -> str:\n    return yaml",
+         "def encode_yaml_config(obj) -> str:\n    import yaml\n\n    return yaml"),
+    ],
+    "agent/config.py": [
+        ("from __future__ import annotations\n\nimport yaml\n\n",
+         "from __future__ import annotations\n\n"),
+        ("def parse_partition_config(text: str) -> dict[str, PartitionResources]:\n"
+         "    raw = yaml",
+         "def parse_partition_config(text: str) -> dict[str, PartitionResources]:\n"
+         "    import yaml\n\n    raw = yaml"),
+    ],
+    "agent/tailer.py": [],
+    # no grpc on the card's machine: the servicer aborts with the port's
+    # StatusCode (LocalContext raises it in process, the transport turns
+    # it into grpc's code of the same name)
+    "agent/server.py": [
+        ("import uuid\n\nimport grpc\n\n", "import uuid\n\n"),
+        ("from slurm_bridge_tpu_torch.wire import pb\n",
+         "from slurm_bridge_tpu_torch.wire import StatusCode, pb\n"),
+        ("grpc.StatusCode", "StatusCode", 12),
+    ],
+    "agent/main.py": [],
+    "bridge/client.py": [],
+    "bridge/kubeapi.py": [
+        ("    from slurm_bridge_tpu import __version__\n",
+         "    from slurm_bridge_tpu_torch import __version__\n"),
+    ],
+    "bridge/vkhttp.py": [],
+    "bridge/vnconfig.py": [],
+    # the port's RpcError, which the transport raises for grpc's
+    "bridge/fetcher.py": [
+        ("import threading\n\nimport grpc\n\n", "import threading\n\n"),
+        ("from slurm_bridge_tpu_torch.wire import ServiceClient, dial, pb\n",
+         "from slurm_bridge_tpu_torch.wire import RpcError, ServiceClient, dial, pb\n"),
+        ("grpc.RpcError", "RpcError", 3),
+    ],
+    # the device keyword, checked before anything is built, handed to the
+    # scheduler
+    "bridge/runtime.py": [
+        ("from slurm_bridge_tpu_torch.obs.events import EventRecorder\n",
+         "from slurm_bridge_tpu_torch.obs.events import EventRecorder\n"
+         "from slurm_bridge_tpu_torch.parallel.backend import ensure_backend\n"),
+        ("        explain: bool = True,\n    ):\n        self.agent_endpoint = agent_endpoint\n",
+         "        explain: bool = True,\n        device=None,\n    ):\n"
+         "        #: where the scheduler's device auction runs: None is the card (or\n"
+         '        #: SBT_BACKEND=cpu), "cpu" the host (parallel/backend.py); checked\n'
+         "        #: before anything is built, so a missing card fails here and not\n"
+         "        #: on the scheduler thread's first solve\n"
+         "        self.device = device\n"
+         "        ensure_backend(device)\n"
+         "        self.agent_endpoint = agent_endpoint\n"),
+        ("            explain=explain,\n        )\n        self._sched_ticker",
+         "            explain=explain,\n            device=device,\n        )\n"
+         "        self._sched_ticker"),
+    ],
+    "bridge/main.py": [],
+    "bridge/demo.py": [],
 }
 
 

@@ -13,6 +13,7 @@ each with its reason. The reference file itself is never edited.
 from __future__ import annotations
 
 import pathlib
+import sys
 import types
 
 import pytest
@@ -39,6 +40,9 @@ def load_twin(stem: str, *, rewrites=(), drop=()) -> dict:
         src = src.replace(old, new)
     mod = types.ModuleType(f"port_twin_of_{stem}")
     mod.__file__ = str(TESTS / f"{stem}.py")
+    # registered first: a dataclass defined in the file looks its module
+    # up in sys.modules while the class is built
+    sys.modules[mod.__name__] = mod
     exec(compile(src, f"<port twin of tests/{stem}.py>", "exec"), mod.__dict__)
     ns = {k: v for k, v in vars(mod).items() if not k.startswith("__")}
     for name in drop:
@@ -98,7 +102,10 @@ def _tests_in(ns: dict) -> set[str]:
     "test_preemption", "test_streaming", "test_solver_service", "test_fleet",
     "test_fleet_obs", "test_wire", "test_store_frames", "test_incremental",
     "test_explain", "test_encoder", "test_properties", "test_manifests",
-    "test_admission", "test_policy", "test_colstore",
+    "test_admission", "test_policy", "test_colstore", "test_agent",
+    "test_bridge", "test_client", "test_races", "test_resilience",
+    "test_kubeapi", "test_vkhttp", "test_demo", "test_utils", "test_obs",
+    "test_flight",
 ])
 def test_twin_runs_every_reference_test_it_does_not_drop(stem):
     """Each twin file carries every test of its reference file except the

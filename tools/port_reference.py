@@ -37,6 +37,18 @@ and arriving jobs (``np.random.default_rng(0)``). It prints each tick's
 ``node_of`` digest, kept, preempted and started shard counts and
 stability (chip_smoke.py's ``churn_summary``).
 
+``--bridge``: runs the JAX package's agent and ``Bridge`` over the fake
+Slurm CLI (``tests/fakeslurm``, put first on ``PATH``) at chip_smoke.py's
+``BRIDGE`` width: a state directory whose ``cluster.json`` holds the
+headline inventory (``fake_cluster``), the JAX ``WorkloadServicer`` served
+over gRPC on a unix socket, and a ``Bridge(scheduler_backend="auction")``
+with the dense auction pinned (``AuctionConfig(rounds=8, candidates=0,
+use_pallas=False)``) that takes ``BRIDGE``'s jobs (``bridge_inventory``,
+``bridge_jobs``) and makes its first placing tick before its daemons start
+(``bridge_first_tick``). It prints the pods bound, the digest
+(``bridge_digest``), the route and the tick's phases; ``--nodes``/``--jobs``
+override the counts.
+
 ``--place``: runs the JAX package's ``PlacementSolverServicer`` (launched
 with the same dense config, ``solver="auction"``) on a ``PlaceRequest`` for
 the typed headline inventory (``random_inventory``, 57,635 shards ×
@@ -56,6 +68,7 @@ sidecar runs on the card to these numbers.
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_500kx100k --scale 0.1
     JAX_PLATFORMS=cpu python tools/port_reference.py --churn
     JAX_PLATFORMS=cpu python tools/port_reference.py --place --nodes 10000 --jobs 50000
+    JAX_PLATFORMS=cpu python tools/port_reference.py --bridge
 """
 
 from __future__ import annotations
@@ -73,13 +86,18 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
+    BRIDGE,
     CHURN,
     CHURN_TICKS,
     InventoryClient,
+    bridge_first_tick,
+    bridge_inventory,
+    bridge_jobs,
     busiest_node,
     churn_summary,
     churn_tick,
     drained_request,
+    fake_cluster,
     place_digest,
     place_request,
     response_digest,
@@ -217,6 +235,50 @@ def run_place(num_nodes: int, num_jobs: int, seed: int) -> dict:
             "solver='auction'", "drained": drained, "places": out}
 
 
+def run_bridge(num_nodes: int, num_jobs: int, seed: int) -> dict:
+    import shutil
+    import tempfile
+
+    import slurm_bridge_tpu.bridge.objects as objects
+    from slurm_bridge_tpu.agent import SlurmClient, WorkloadServicer
+    from slurm_bridge_tpu.bridge import Bridge, BridgeJobSpec
+    from slurm_bridge_tpu.solver.snapshot import random_inventory
+    from slurm_bridge_tpu.wire import serve
+
+    logging.getLogger("sbt").setLevel(logging.ERROR)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tmp = tempfile.mkdtemp(prefix="sbt-bridge-ref-")
+    state = os.path.join(tmp, "state")
+    os.makedirs(state)
+    partitions, nodes, demands = bridge_inventory(random_inventory, num_nodes, num_jobs, seed)
+    with open(os.path.join(state, "cluster.json"), "w") as f:
+        json.dump(fake_cluster(partitions, nodes), f)
+    os.environ["SBT_FAKESLURM_STATE"] = state
+    os.environ["PATH"] = os.path.join(repo, "tests", "fakeslurm") + os.pathsep + os.environ["PATH"]
+    sock = os.path.join(tmp, "agent.sock")
+    server = serve({"WorkloadManager": WorkloadServicer(SlurmClient())}, sock)
+    bridge = Bridge(sock, scheduler_backend="auction",
+                    auction_config=AuctionConfig(rounds=8, candidates=0, use_pallas=False))
+    try:
+        t0 = time.perf_counter()
+        tick = bridge_first_tick(bridge, objects, bridge_jobs(BridgeJobSpec, demands))
+        secs = time.perf_counter() - t0
+    finally:
+        bridge.configurator.stop()
+        bridge.client.close()
+        server.stop(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "bridge": {"nodes": num_nodes, "jobs": num_jobs, "seed": seed, **SCENARIO},
+        "config": 'Bridge(scheduler_backend="auction"), AuctionConfig(rounds=8, '
+        "candidates=0, use_pallas=False)",
+        "placed": tick["placed"], "bridge_sha256": tick["digest"], "route": tick["route"],
+        "tick_ms": round(tick["wall_ms"], 1),
+        "phase_ms": {k: round(v, 1) for k, v in tick["phase_ms"].items()},
+        "cpu_seconds_wall": round(secs, 3),
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=None,
@@ -234,7 +296,17 @@ def main() -> None:
                     help="run the streaming reschedule at chip_smoke.py's CHURN shape")
     ap.add_argument("--place", action="store_true",
                     help="run the solver sidecar's Place on the typed inventory")
+    ap.add_argument("--bridge", action="store_true",
+                    help="run the Bridge's first placing tick over the fake Slurm CLI")
     args = ap.parse_args()
+    if args.bridge:
+        res = run_bridge(args.nodes or BRIDGE["num_nodes"], args.jobs or BRIDGE["num_jobs"],
+                         args.seed)
+        print(json.dumps({
+            **res,
+            "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
+        }))
+        return
     if args.churn:
         args.nodes = args.nodes or CHURN["num_nodes"]
         args.jobs = args.jobs or CHURN["num_jobs"]
