@@ -2,9 +2,12 @@
 """On-card smoke run of the PyTorch/CUDA port: the placement solve, the
 placement tick, the bridge's job lifecycle on the simulated cluster, its
 recovery from a crash, the sharded tick, the streaming reschedule, the
-placement-solver sidecar and the bridge's daemons.
+placement-solver sidecar, the bridge's daemons and the multi-device sweep.
 
     python3 chip_smoke.py
+
+(``chip_smoke.py --sweep-rank RANK PORT DEVICE`` is one rank of phase 12's
+two-process run; phase 12 starts both itself.)
 
 Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``; exits non-zero
 without one. Imports nothing of JAX or of the JAX package. Phases, each of
@@ -126,9 +129,29 @@ which fails the run:
     until every job has Succeeded with its stdout fetched (each fetched
     file holds its marker); prints the wall time from the first submit to
     the last, and one job's log read over the kubelet HTTP server;
-12. hold the card against the JAX package's result on a reduced scenario
+12. the multi-device sweep on one card (``solver/sharded.py``): (a) the
+    headline (57,635 × 10,000, ``AuctionConfig(rounds=8, candidates=0)``)
+    on a :data:`SWEEP` grid of four ``cuda:0`` blocks — 32 kernel launches
+    per solve, one per block and round, each with its global
+    ``p_base``/``n_base``; round 0's four calls and the last round's are
+    held bit-exact against the plain version on their own operands; the
+    ``node_of`` must equal the JAX package's 2×2 sweep
+    (:data:`SHARDED_REFERENCE`), be feasible, deterministic over four
+    solves and place ≥ 90 % of phase 4's shards; prints the solve wall,
+    the kernel's device time per block launch and per solve, an all-live
+    block launch beside its bounds, and the per-round combine and gathers
+    (gated CUDA events); (b) ``PlacementScheduler(backend="auction",
+    sharded=True)`` on phase 5's headline tick world, a 1×1 grid: route
+    ``"auction-sharded"``, 8 launches, the JAX package's forced-sharded
+    tick digest; (c) two ranks of this script (``--sweep-rank``) joined
+    over gloo on the one card (NCCL refuses two ranks on one card and needs
+    two or more cards: not run), each a dp row of two ``cuda:0`` blocks
+    (``hybrid_solver_mesh``) — 16 launches per solve each, both ranks'
+    ``node_of`` equal to (a)'s; a rank that fails, hangs past
+    :data:`SWEEP_RANK_DEADLINE_S` or exits nonzero fails the run;
+13. hold the card against the JAX package's result on a reduced scenario
     (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
-13. print times with the card's name and power limit, and the run's wall
+14. print times with the card's name and power limit, and the run's wall
     time.
 
 The second-to-last lines are the kernels' JSON record and the
@@ -141,6 +164,8 @@ import contextlib
 import hashlib
 import json
 import logging
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -266,6 +291,23 @@ BRIDGE_REFERENCE = dict(
 )
 #: How long the bridge phase waits for every job to succeed and be fetched.
 BRIDGE_DEADLINE_S = 600
+#: Phase [12]'s grid: the headline solve's ("dp", "mp") blocks, all on
+#: ``cuda:0``; in its two-rank run each rank holds one dp row of them.
+SWEEP = dict(dp=2, mp=2)
+#: The JAX package's multi-device sweep of the headline scenario on four
+#: virtual CPU devices as a ``solver_mesh(devices[:4], dp=2, mp=2)`` (four
+#: blocks of 28,818 shards × 5,000 nodes), and its forced-sharded
+#: ``PlacementScheduler`` tick over the typed headline inventory on a 1×1
+#: mesh (pods bound, tick digest), with the dense config, from
+#: ``JAX_PLATFORMS=cpu python tools/port_reference.py --sharded``.
+SHARDED_REFERENCE = dict(
+    placed_jobs=45479, placed_shards=52307,
+    node_of_sha256="b6a4f8a8afea3192637cc0709c51544669a0e8be5195cdcf733ba7fca316ebcd",
+    tick_placed=45777,
+    tick_sha256="9e913c369ad1a6feb91985a4aca8cce906f678c60f0f9aeec489f338dee6e17f",
+)
+#: How long phase [12] waits for its two ranks, start to exit.
+SWEEP_RANK_DEADLINE_S = 300
 #: What the JAX package's default (native-routed on the CPU) run of
 #: ``full_50kx10k`` binds over its 3 ticks: printed beside the port's
 #: auto-routed tick for reading, not compared.
@@ -727,15 +769,17 @@ def small_operands(seed, n, p, device):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
-def compare(kern, args, salt, aw, n, label, live=None, got=None, jitter=1.0, **plain_kw):
+def compare(kern, args, salt, aw, n, label, live=None, got=None, jitter=1.0,
+            p_base=0, n_base=0, **plain_kw):
     """Kernel vs plain on the same operands; returns the max |Δ| over
     finite values. Bit-exact at aw=0; the stated tolerance at aw≠0.
     ``got`` is the kernel's (values, choices) from a launch already made
-    on these operands; without it the kernel is launched here."""
+    on these operands; without it the kernel is launched here.
+    ``p_base``/``n_base`` are a sweep block's global offsets."""
     kw = dict(jitter=jitter, affinity_weight=aw, num_nodes=n, live=live)
-    bv, bi = got if got is not None else kern.bid_argmax(*args, salt, **kw)
+    bv, bi = got if got is not None else kern.bid_argmax(*args, salt, p_base, n_base, **kw)
     torch.cuda.synchronize()
-    pv, pi = kern.bid_argmax_plain(*args, salt, **kw, **plain_kw)
+    pv, pi = kern.bid_argmax_plain(*args, salt, p_base, n_base, **kw, **plain_kw)
     same_idx = (bi == pi).float().mean().item()
     fin = torch.isfinite(pv)
     require(torch.equal(torch.isfinite(bv), fin), f"{label}: feasibility differs")
@@ -795,12 +839,13 @@ def sm_clock_mhz(busy) -> float:
 @contextlib.contextmanager
 def kernel_events(keep_operands: bool, timed: bool = True):
     """Within the block, one record per call of the kernel's wrapper by
-    the auction. ``timed``: CUDA events around each call (behind a short
+    the auction or by the multi-device sweep's blocks. ``timed``: CUDA events around each call (behind a short
     gate, so they time the device's work: the wrapper's work list, node
     packing, scoring and finish), read into the record's ``ms`` once the
     block ends. ``keep_operands``: each call's operands, live mask and
     keywords, and a copy of what the kernel returned (``out``)."""
     import slurm_bridge_tpu_torch.solver.auction as auction_mod
+    import slurm_bridge_tpu_torch.solver.sharded as sharded_mod
 
     real = auction_mod.bid_argmax
     calls = []
@@ -822,11 +867,11 @@ def kernel_events(keep_operands: bool, timed: bool = True):
         calls.append(rec)
         return out
 
-    auction_mod.bid_argmax = recorder
+    auction_mod.bid_argmax = sharded_mod.bid_argmax = recorder
     try:
         yield calls
     finally:
-        auction_mod.bid_argmax = real
+        auction_mod.bid_argmax = sharded_mod.bid_argmax = real
     torch.cuda.synchronize()
     for r in calls:
         if timed:
@@ -839,7 +884,8 @@ def compare_recorded(kern, r, label) -> float:
     keywords."""
     kw = r["kw"]
     return compare(kern, r["args"], r["salt"], kw["affinity_weight"], kw["num_nodes"], label,
-                   live=r["live"], got=r["out"], jitter=kw["jitter"], bp=4096, bn=2048)
+                   live=r["live"], got=r["out"], jitter=kw["jitter"],
+                   p_base=kw.get("p_base", 0), n_base=kw.get("n_base", 0), bp=4096, bn=2048)
 
 
 def instrumented_solve(snap, batch):
@@ -1464,10 +1510,251 @@ def time_calls(kern, calls, label: str, smi: str) -> dict:
     return dict(ms_per_solve=ms_total, cells=cells_total, pinned_extra_cells=pinned_total)
 
 
+@contextlib.contextmanager
+def combine_times(sharded_mod, device: bool = True):
+    """Within the block, the time in ms of each call of the sweep's
+    per-round combine and gathers (``combine_blocks``): with ``device``,
+    its device time from CUDA events behind the gate of
+    :func:`kernel_events`; else its host time up to a synchronize (a rank
+    whose "dp" gather crosses the group stages through host memory). The
+    list fills once the block ends."""
+    real = sharded_mod.combine_blocks
+    events, host_ms = [], []
+
+    def timed(*args, **kw):
+        if not device:
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(GATE_CYCLES // 10)
+        start.record()
+        out = real(*args, **kw)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    sharded_mod.combine_blocks = timed
+    ms = []
+    try:
+        yield ms
+    finally:
+        sharded_mod.combine_blocks = real
+    torch.cuda.synchronize()
+    ms.extend(host_ms + [a.elapsed_time(b) for a, b in events])
+
+
+def sweep_rank(rank: int, port: int, device: str) -> int:
+    """One of phase [12]'s two ranks (``chip_smoke.py --sweep-rank RANK
+    PORT DEVICE``): joins a gloo group of two on ``127.0.0.1:PORT``, takes
+    one dp row of :data:`SWEEP`'s grid — its mp blocks on DEVICE — and runs
+    the headline sweep twice. Prints one JSON object: its grid, launches,
+    wall and ``node_of`` digest per solve and the host time of each
+    round's combine and gathers (the "dp" gather crosses the group)."""
+    import slurm_bridge_tpu_torch.ops.bid_argmax as kern
+    import slurm_bridge_tpu_torch.solver.sharded as sharded_mod
+    from slurm_bridge_tpu_torch.parallel.distributed import hybrid_solver_mesh, init_distributed
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+    from slurm_bridge_tpu_torch.solver.snapshot import random_scenario
+
+    dev = torch.device(device)
+    require(init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo"),
+            "init_distributed made no group")
+    grid = hybrid_solver_mesh(devices=[dev] * SWEEP["mp"])
+    require(grid.shape == SWEEP and grid.local_rows(rank) == [rank], grid)
+    snap, batch = random_scenario(**HEADLINE)
+    solves = []
+    with combine_times(sharded_mod, device=False) as combine_ms:
+        for _ in range(2):
+            kern.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pl = sharded_mod.sharded_place(snap, batch,
+                                           AuctionConfig(rounds=ROUNDS, candidates=0),
+                                           mesh=grid, device=dev.type)
+            solves.append(dict(launches=kern.LAUNCHES, wall_ms=(time.perf_counter() - t0) * 1e3,
+                               placed=int(pl.placed.sum()), digest=digest(pl.node_of)))
+    backend = torch.distributed.get_backend()
+    # every rank past its last collective before either tears down
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(json.dumps(dict(rank=rank, shape=grid.shape, backend=backend, solves=solves,
+                          combine_ms=combine_ms)), flush=True)
+    return 0
+
+
+def sweep_phase(kern, smi: str, snap, batch, single_shards: int, sm_hz: float,
+                dev=torch.device("cuda", 0)) -> dict:
+    """Phase [12]: the multi-device sweep on one card (module docstring),
+    its blocks on ``dev``. Returns what the kernels line and the summary
+    print."""
+    import slurm_bridge_tpu_torch.solver.sharded as sharded_mod
+    from slurm_bridge_tpu_torch.bridge.objects import Pod
+    from slurm_bridge_tpu_torch.bridge.scheduler import PlacementScheduler
+    from slurm_bridge_tpu_torch.parallel.mesh import solver_mesh
+    from slurm_bridge_tpu_torch.solver import AuctionConfig
+    from slurm_bridge_tpu_torch.solver.snapshot import random_inventory
+
+    grid = solver_mesh([dev] * (SWEEP["dp"] * SWEEP["mp"]), **SWEEP)
+    blocks = grid.devices.size
+    cfg = AuctionConfig(rounds=ROUNDS, candidates=0)
+    per_solve = ROUNDS * blocks
+
+    # (a) the headline on a 2x2 grid of cuda:0 blocks: one instrumented
+    # solve (each block call's operands kept, the kernel timed), three
+    # timed solves, then one with the combine timed (its first calls in the
+    # process load their kernels: a cost of the first solve alone)
+    log(f"  (a) {SWEEP['dp']}x{SWEEP['mp']} grid of {dev} blocks, "
+        f"{batch.num_shards} shards x {snap.num_nodes} nodes")
+    before = kern.LAUNCHES
+    with kernel_events(keep_operands=True) as calls:
+        inst = sharded_mod.sharded_place(snap, batch, cfg, mesh=grid, device=dev.type)
+    path_launches = kern.LAUNCHES - before  # the sweep's own, not the timing's below
+    require(path_launches == per_solve and len(calls) == per_solve,
+            f"{path_launches} kernel launches in the sweep ({per_solve} wanted)")
+    solve_launches = [path_launches]  # each solve's count, as read
+    errs, cells = [], []
+    for j, r in enumerate(calls):
+        kw = r["kw"]
+        node_part = r["args"][1].cpu().numpy()
+        node_part = np.where(node_part == 2**30, -1, node_part)  # pad nodes need no cell
+        cells.append(needed_cells(node_part, r["args"][5].cpu().numpy(), r["live"].cpu().numpy()))
+        rnd = j // blocks
+        label = (f"sweep round {rnd} block p_base {kw['p_base']} n_base {kw['n_base']} "
+                 f"({r['args'][0].shape[0]},{r['args'][4].shape[0]})")
+        if rnd in (0, ROUNDS - 1):
+            errs.append(compare_recorded(kern, r, label))
+        log(f"    {label}: live rows {int(r['live'].sum())}, needed cells {cells[-1]}, "
+            f"kernel {r['ms']:.4f} ms in the solve [{smi}]")
+    kernel_ms = [r["ms"] for r in calls]
+    ms_per_solve = sum(kernel_ms)
+    r0 = calls[0]
+    kw0 = dict(r0["kw"], live=None)
+    block_ms = cuda_ms(lambda: kern.bid_argmax(*r0["args"], r0["salt"], **kw0), 20)
+    nbytes = sum(a.numel() * a.element_size() for a in r0["args"]) + 9 * r0["args"][4].shape[0]
+    block_cells = needed_cells(np.where(r0["args"][1].cpu().numpy() == 2**30, -1,
+                                        r0["args"][1].cpu().numpy()),
+                               r0["args"][5].cpu().numpy(), np.ones(r0["args"][4].shape[0], bool))
+    block_bound, block_bound_by, block_ceiling = bounds(kern, block_cells, nbytes, sm_hz)
+    solve_bound, _, solve_ceiling = bounds(kern, sum(cells), per_solve * nbytes, sm_hz)
+    walls, outs = [], []
+    for _ in range(3):
+        before = kern.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(sharded_mod.sharded_place(snap, batch, cfg, mesh=grid, device=dev.type))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        solve_launches.append(kern.LAUNCHES - before)
+    before = kern.LAUNCHES
+    with combine_times(sharded_mod) as combine_ms:
+        outs.append(sharded_mod.sharded_place(snap, batch, cfg, mesh=grid, device=dev.type))
+    solve_launches.append(kern.LAUNCHES - before)
+    require(solve_launches == [per_solve] * len(solve_launches),
+            f"{solve_launches} launches per solve ({per_solve} wanted)")
+    path_launches = sum(solve_launches)
+    for pl in outs:
+        np.testing.assert_array_equal(pl.node_of, inst.node_of)
+    check_feasible(snap, batch, inst)
+    got = digest(inst.node_of)
+    require(got == SHARDED_REFERENCE["node_of_sha256"],
+            f"sweep node_of digest {got} differs from the JAX package's")
+    placed = int(inst.placed.sum())
+    require(placed == SHARDED_REFERENCE["placed_shards"], placed)
+    require(placed >= 0.9 * single_shards, f"sweep placed {placed} of {single_shards}")
+    log(f"  (a) {1 + len(outs)} solves identical and feasible, {solve_launches} launches; "
+        f"placed {placed} "
+        f"shards ({placed / single_shards:.4f} of phase [4]'s {single_shards}); node_of digest "
+        f"equals the JAX package's 2x2 sweep ({got[:16]}…); solve wall "
+        f"{[round(w, 1) for w in walls]} ms; kernel {ms_per_solve:.4f} ms per solve over "
+        f"{per_solve} block launches ({min(kernel_ms):.4f}–{max(kernel_ms):.4f} ms each), "
+        f"{sum(cells)} needed cells, bound {solve_bound:.4f} ms, issue ceiling "
+        f"{solve_ceiling:.4f} ms; a round-0 block all live {block_ms:.4f} ms/launch "
+        f"({block_cells} cells, bound {block_bound:.4f} ms {block_bound_by}, ceiling "
+        f"{block_ceiling:.4f} ms); combine and gathers {sum(combine_ms):.4f} ms per solve "
+        f"({min(combine_ms):.4f}–{max(combine_ms):.4f} ms a round) [{smi}]")
+
+    # (b) the product route: a forced-sharded scheduler tick on a 1x1 grid
+    logging.getLogger("sbt").setLevel(logging.ERROR)
+    partitions, nodes, demands = random_inventory(
+        HEADLINE["num_nodes"], HEADLINE["num_jobs"], seed=HEADLINE["seed"],
+        load=HEADLINE["load"], gpu_fraction=HEADLINE["gpu_fraction"],
+        gang_fraction=HEADLINE["gang_fraction"],
+    )
+    client, make_store = port_tick_world(partitions, nodes, demands)
+    store = make_store()
+    sched = PlacementScheduler(store, client, backend="auction", inventory_ttl=0, sharded=True,
+                               auction_config=cfg, device=dev.type)
+    before = kern.LAUNCHES
+    t0 = time.perf_counter()
+    tick_placed = sched.tick()
+    path_launches += kern.LAUNCHES - before
+    tick = dict(placed=tick_placed, route=sched.last_route, launches=kern.LAUNCHES - before,
+                digest=tick_digest(store.list(Pod.KIND)),
+                wall_ms=(time.perf_counter() - t0) * 1e3, phase_ms=dict(sched.last_phase_ms))
+    require(tick["route"] == "auction-sharded", f"the forced tick routed {tick['route']}")
+    require(tick["launches"] == ROUNDS, f"{tick['launches']} launches in the forced tick")
+    require((tick["placed"], tick["digest"]) == (SHARDED_REFERENCE["tick_placed"],
+                                                 SHARDED_REFERENCE["tick_sha256"]),
+            f"forced-sharded tick {tick['placed']} / {tick['digest']} differs from the JAX "
+            "package's")
+    log(f"  (b) PlacementScheduler(sharded=True) on a 1x1 grid: route {tick['route']}, bound "
+        f"{tick['placed']}, {tick['launches']} launches, digest equals the JAX package's "
+        f"({tick['digest'][:16]}…); wall {tick['wall_ms']:.1f} ms ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in tick["phase_ms"].items()) + f" ms) [{smi}]")
+
+    # (c) two ranks on the one card over gloo, each a dp row of the grid
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sweep-rank", str(r),
+                          str(port), str(dev)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)
+    ]
+    ranks = []
+    try:
+        deadline = time.monotonic() + SWEEP_RANK_DEADLINE_S
+        for proc in procs:
+            out, err = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            require(proc.returncode == 0, f"a sweep rank exited {proc.returncode}:\n{err[-3000:]}")
+            ranks.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks_s = time.perf_counter() - t0
+    for rk in ranks:
+        require(rk["shape"] == SWEEP and rk["backend"] == "gloo", rk)
+        for sv in rk["solves"]:
+            require(sv["digest"] == got, f"rank {rk['rank']} digest {sv['digest']} differs")
+            require(sv["launches"] == ROUNDS * SWEEP["mp"],
+                    f"rank {rk['rank']}: {sv['launches']} launches in a solve")
+        log(f"  (c) rank {rk['rank']} over gloo: {[sv['launches'] for sv in rk['solves']]} "
+            f"launches, solve wall {[round(sv['wall_ms'], 1) for sv in rk['solves']]} ms, "
+            f"digest equals (a)'s; combine and gathers per round "
+            f"{min(rk['combine_ms']):.2f}–{max(rk['combine_ms']):.2f} ms (host, staged "
+            f"through host memory) [{smi}]")
+    log(f"  (c) both ranks' placements equal (a)'s; the two processes took {ranks_s:.1f} s. "
+        f"NCCL arm: not run — it needs 2 or more cards, this machine has "
+        f"{torch.cuda.device_count()}")
+    return dict(errs=errs, walls=walls, kernel_ms=kernel_ms, ms_per_solve=ms_per_solve,
+                solve_launches=solve_launches, launches=path_launches, solves=1 + len(outs),
+                combine_ms=combine_ms, block_ms=block_ms,
+                cells=sum(cells), tick=tick, ranks=ranks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--sweep-rank"]:
+        return sweep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     import slurm_bridge_tpu_torch.ops.bid_argmax as kern
     from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
     from slurm_bridge_tpu_torch.solver import AuctionConfig, DeviceSolver, auction_place
@@ -1685,7 +1972,18 @@ def main() -> int:
     require(daemons_launches >= ROUNDS, f"{daemons_launches} kernel launches in the bridge phase")
     errs += daemons["errs"]
 
-    # 12. the JAX package's result on the reduced scenario
+    # 12. the multi-device sweep on one card
+    log(f"[12] main path: the multi-device sweep on one card — the headline on a "
+        f"{SWEEP['dp']}x{SWEEP['mp']} grid of cuda:0 blocks, the forced-sharded tick, two "
+        "ranks over gloo")
+    kern.LAUNCHES = 0
+    sweep = sweep_phase(kern, smi, snap, batch, int(headline.placed.sum()), sm_mhz * 1e6)
+    sweep_launches = sweep["launches"]
+    require(sweep_launches == sweep["solves"] * ROUNDS * SWEEP["dp"] * SWEEP["mp"] + ROUNDS,
+            f"{sweep_launches} kernel launches in the sweep phase")
+    errs += sweep["errs"]
+
+    # 13. the JAX package's result on the reduced scenario
     ref_snap, ref_batch = random_scenario(
         REFERENCE["nodes"], REFERENCE["jobs"], seed=42, load=0.7,
         gpu_fraction=0.15, gang_fraction=0.05,
@@ -1696,44 +1994,51 @@ def main() -> int:
     ref_jobs = len(ref_pl.by_job(ref_batch))
     rel = abs(ref_jobs - REFERENCE["placed_jobs"]) / REFERENCE["placed_jobs"]
     match = digest(ref_pl.node_of) == REFERENCE["node_of_sha256"]
-    log(f"[12] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
+    log(f"[13] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
         f"vs JAX {REFERENCE['placed_jobs']} (rel {rel:.5f}); node_of digest matches JAX: {match}")
     require(rel <= 0.005, rel)
 
-    # 13. times
+    # 14. times
     p50 = statistics.median(wall_ms)
-    log(f"[13] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
+    log(f"[14] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
         f"(min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); kernel {kernel_ms:.4f} ms/launch "
         f"(bound {bound_ms:.4f}, ceiling {ceiling_ms:.4f}), {ms_per_solve:.4f} ms per solve; "
         f"total run {time.perf_counter() - t_start:.0f} s")
     for i, t in enumerate(tick["ticks"]):
-        log(f"[13] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
+        log(f"[14] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in t["phase_ms"].items())
             + f"; {t['launches']} kernel launches")
     for label, run, launches in (("full_50kx10k", sim, sim_launches),
                                  ("full_50kx10k_crash", crash, crash_launches),
                                  (f"full_500kx100k({SHARD_SCALE})", shard, shard_launches)):
         tm = run["result"].timing
-        log(f"[13] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
+        log(f"[14] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
             + f" (p50 over {len(run['ticks'])} ticks); {launches} kernel launches; "
             f"phase wall {run['wall_s']:.1f} s")
-    log(f"[13] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; shard solves "
+    log(f"[14] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; shard solves "
         f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms")
-    log(f"[13] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
+    log(f"[14] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
         f"re-solve ms {[round(t['solve_ms'], 1) for t in churn['ticks']]}, "
         f"{churn_launches} kernel launches, kernel {churn['kernel']['ms_per_solve']:.4f} ms per "
         f"solve on churn tick 1; auto route {churn['auto_route']}")
-    log(f"[13] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
+    log(f"[14] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
         f"(solve {[round(t['solve_ms'], 1) for t in sidecar['places']]}), "
         f"{sidecar_launches} kernel launches, kernel {sidecar['kernel']['ms_per_solve']:.4f} ms "
         f"per solve on Place 0")
     tk = daemons["tick"]
-    log(f"[13] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
+    log(f"[14] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
         + ", ".join(f"{k} {v:.1f} ms" for k, v in tk["phase_ms"].items())
         + f"), kernel {daemons['kernel']['ms_per_solve']:.4f} ms over {ROUNDS} launches; "
         f"{BRIDGE['num_jobs']} jobs submit to last Succeeded {daemons['wall_s']:.1f} s; "
-        f"{daemons_launches} kernel launches; total run {time.perf_counter() - t_start:.1f} s")
+        f"{daemons_launches} kernel launches")
+    log(f"[14] [{smi}] multi-device sweep ({SWEEP['dp']}x{SWEEP['mp']} cuda:0 blocks): solve "
+        f"wall {[round(w, 1) for w in sweep['walls']]} ms, kernel {sweep['ms_per_solve']:.4f} ms "
+        f"per solve over {sweep['solve_launches'][0]} block launches, combine and gathers "
+        f"{sum(sweep['combine_ms']):.4f} ms per solve; forced-sharded tick "
+        f"{sweep['tick']['wall_ms']:.1f} ms; gloo ranks' solve wall "
+        f"{[[round(sv['wall_ms'], 1) for sv in rk['solves']] for rk in sweep['ranks']]} ms; "
+        f"{sweep_launches} kernel launches; total run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "bid_argmax",
@@ -1761,6 +2066,12 @@ def main() -> int:
         "churn_kernel_ms_per_solve": churn["kernel"]["ms_per_solve"],
         "place_kernel_ms_per_solve": sidecar["kernel"]["ms_per_solve"],
         "tick_kernel_ms": tick["auto"]["kernel_ms"],
+        "launches_per_sharded_solve": sweep["solve_launches"],
+        "sharded_kernel_ms_per_solve": sweep["ms_per_solve"],
+        "sharded_block_ms": sweep["block_ms"],
+        "launches_sharded_tick": sweep["tick"]["launches"],
+        "launches_per_rank_solve": [sv["launches"] for rk in sweep["ranks"]
+                                    for sv in rk["solves"]],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

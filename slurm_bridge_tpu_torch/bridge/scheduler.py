@@ -1341,15 +1341,13 @@ class PlacementScheduler:
     def _use_sharded(self, batch, snapshot) -> bool:
         if self.sharded is not None:
             return self.sharded
-        import torch
-
         from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
+        from slurm_bridge_tpu_torch.parallel.mesh import device_count
         from slurm_bridge_tpu_torch.solver.routing import use_sharded
 
-        backend = ensure_backend(self.device)
-        n_devices = torch.cuda.device_count() if backend == "cuda" else 1
         return use_sharded(
-            batch.num_shards, snapshot.num_nodes, n_devices,
+            batch.num_shards, snapshot.num_nodes,
+            device_count(ensure_backend(self.device)),
             self.sharded_threshold,
         )
 
@@ -1405,9 +1403,12 @@ class PlacementScheduler:
                     [incumbent, np.full(batch.num_shards - p_real, -1, np.int32)]
                 )
         if self._use_sharded(batch, snapshot):
-            raise NotImplementedError(
-                "the multi-device sharded auction is not ported yet: ROADMAP "
-                "Queue 1 item 8"
+            from slurm_bridge_tpu_torch.solver.sharded import sharded_place
+
+            self.last_route = "auction-sharded"
+            placement = sharded_place(
+                snapshot, batch, self.auction_config, incumbent=incumbent,
+                device=self.device,
             )
         else:
             self.last_route = "auction"

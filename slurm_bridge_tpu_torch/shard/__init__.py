@@ -13,11 +13,6 @@ Public surface:
   chance for gangs no single shard could place (reconcile.py).
 
 See docs/sharding.md for the full design walkthrough.
-
-The port carries all of it but one route: the multi-device sweep a big
-shard would take on two or more cards (ROADMAP Queue 1 item 8), which
-raises ``NotImplementedError``; each shard's auction runs on the
-executor's ``device``.
 """
 
 from slurm_bridge_tpu_torch.shard.executor import ShardExecutor

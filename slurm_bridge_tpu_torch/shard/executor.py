@@ -18,9 +18,9 @@ One :class:`ShardExecutor` replaces the scheduler's monolithic
    provider pod-sync pool). The per-shard router mirrors the monolithic
    one (greedy pin-through, indexed native below the dispatch floor)
    and runs the device auction on the executor's ``device`` — the card,
-   unless asked for the CPU. Big shards would be promoted to the
-   multi-device sweep, which is not ported (ROADMAP Queue 1 item 8): with
-   fewer than two cards they stay on the single-device auction, and a
+   unless asked for the CPU — and PROMOTES big shards to the multi-device
+   sweep (``solver/sharded.py``) when the process solves on two or more
+   devices; with fewer they stay on the single-device auction, and a
    device failure propagates instead of turning into a CPU solve;
 5. **merge + reconcile** — per-shard placements map back to global job
    indices; per-shard residuals scatter onto the global node axis and
@@ -521,7 +521,7 @@ class ShardExecutor:
                 "greedy",
             )
         # promoted device path: a shard big enough to amortize the mesh
-        # collectives would ride the multi-device sweep whenever ≥2 cards
+        # collectives rides the multi-device sweep whenever ≥2 devices
         # exist; with fewer it stays on the single-device auction below
         cells = batch.num_shards * snapshot.num_nodes
         if self.config.device_solve is not False:
@@ -600,21 +600,35 @@ class ShardExecutor:
         self, snapshot, batch, incumbent, forced: bool
     ) -> Placement | None:
         """The multi-device sweep, or None (→ the single-device auction)
-        when the process has fewer than two cards. The sweep itself is not
-        ported (ROADMAP Queue 1 item 8), and nothing here turns a device
-        failure into a CPU solve."""
-        import torch
-
+        when the process solves on fewer than two devices. Nothing here
+        turns a device failure into a CPU solve: it propagates."""
         from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
+        from slurm_bridge_tpu_torch.parallel.mesh import device_count
 
-        backend = ensure_backend(self.device)
-        n_devices = torch.cuda.device_count() if backend == "cuda" else 1
-        if n_devices < 2:
+        if device_count(ensure_backend(self.device)) < 2:
             return None
-        raise NotImplementedError(
-            "the multi-device sharded auction is not ported yet: ROADMAP "
-            "Queue 1 item 8"
-        )
+        from slurm_bridge_tpu_torch.solver.sharded import sharded_place
+
+        p_real = batch.num_shards
+        inc = incumbent
+        if self.bucket:
+            batch = pad_batch(batch, self.bucket)
+            if batch.num_shards != p_real:
+                inc = np.concatenate(
+                    [inc, np.full(batch.num_shards - p_real, -1, np.int32)]
+                )
+        with self._device_lock:
+            placement = sharded_place(
+                snapshot, batch, self.auction_config, incumbent=inc,
+                device=self.device,
+            )
+        if placement.node_of.shape[0] != p_real:
+            placement = Placement(
+                node_of=placement.node_of[:p_real],
+                placed=placement.placed[:p_real],
+                free_after=placement.free_after,
+            )
+        return placement
 
     # ---- merge + reconcile ----
 

@@ -11,6 +11,8 @@ Solver paths:
 - ``indexed_native`` the indexed C++ packer — host fast path and repair
 - ``auction``       the auction sweep, on the card (or the CPU when asked)
 - ``session``       ``DeviceSolver``: the auction with the snapshot staged
+- ``sharded``       the multi-device sweep: the auction over a ("dp", "mp")
+                    grid of blocks, each scored by the kernel
 - ``routing``       which engine a solve of a given shape goes to
 - ``streaming``     warm-start re-solve with incumbents pinned — stability,
                     preemption and 1k/s churn (BASELINE config #5)

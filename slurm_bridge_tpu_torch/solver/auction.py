@@ -219,16 +219,19 @@ def gang_dedup(choice, valid, assign, gang, multi, n):
 def dense_score_choose(
     free, price, dem, dem_n, job_part, req_feat, node_part, node_feat,
     incumbent, rnd, *, jitter, affinity_weight, dtype, scale,
-    chunk_cells: int = 1 << 24,
+    chunk_cells: int = 1 << 24, p_off: int = 0, n_off: int = 0,
 ):
     """The full [P, N] score/choose — the reference's dense round body, in
     row chunks of at most ``chunk_cells`` cells so no [P, N] array is ever
-    whole. Returns (choice [P] i32, best [P])."""
+    whole. ``p_off``/``n_off`` place a block of the sweep (:mod:`sharded`)
+    at its global rows and nodes: the jitter hash and the incumbent pin see
+    global indices, the returned choice is local. Returns (choice [P] i32,
+    best [P])."""
     p, n = dem.shape[0], free.shape[0]
     device = dem.device
     free_n = (free * scale).to(dtype)
     nf = node_feat.long() & _M32
-    node_ids = torch.arange(n, device=device)
+    node_ids = torch.arange(n, device=device) + n_off
     price_d = price.to(dtype)
     if affinity_weight:
         torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
@@ -246,7 +249,9 @@ def dense_score_choose(
         static_ok = torch.where(inc >= 0, (node_ids[None, :] == inc) & static_ok, static_ok)
         cap_ok = (dem[s, None, :] <= free[None, :, :] + 1e-6).all(-1)
         feasible = static_ok & cap_ok
-        bid = hash_jitter(s.stop - a, n, rnd, dtype, p_off=a, device=device) * jitter
+        bid = hash_jitter(
+            s.stop - a, n, rnd, dtype, p_off=p_off + a, n_off=n_off, device=device
+        ) * jitter
         if affinity_weight:
             affinity = -(dem_n[s] @ free_n.T)
             bid = affinity_weight * affinity + bid

@@ -5,11 +5,9 @@ so the greedy in-process path stays intact. This module is that sidecar:
 a servicer lowering ``PlaceRequest`` (jobs + node inventory + partitions)
 through :func:`encode_cluster` into the device-resident auction solver
 (whose score/choose step is the ``bid_argmax`` kernel on the card) — or
-the greedy packer, or the indexed native packer — and answering with
-per-job node assignments. The multi-device sweep (``solver="sharded"``)
-is not ported (ROADMAP Queue 1 item 8): a Place that names it, or that
-auto-routes to it on two or more cards, fails with UNIMPLEMENTED and
-never falls back to another engine.
+the greedy packer, the indexed native packer, or the multi-device sweep
+(``solver="sharded"``, :mod:`sharded`) — and answering with per-job node
+assignments.
 
 The servicer needs no transport: :func:`serve_solver` hosts it over gRPC
 (``wire/rpc.py`` imports ``grpc`` only there), and an in-process caller
@@ -76,19 +74,6 @@ _ZERO_DEMAND_LOG_INTERVAL_S = 60.0
 _last_zero_demand_log = [0.0]
 
 SOLVERS = ("auction", "greedy", "sharded", "indexed")
-
-#: why a Place that names, or auto-routes to, the multi-device sweep fails
-_NO_SHARDED = (
-    "the multi-device sharded auction is not ported yet: ROADMAP Queue 1 item 8"
-)
-
-
-def _device_count(backend: str) -> int:
-    """Cards the solve's backend sees: the CUDA devices, or 1 on the CPU."""
-    import torch
-
-    return torch.cuda.device_count() if backend == "cuda" else 1
-
 
 class PlacementSolverServicer:
     """Implements the ``PlacementSolver`` service from workload.proto.
@@ -160,8 +145,6 @@ class PlacementSolverServicer:
                 snapshot, batch, incumbent,
                 allow_indexed=requested == "auto",
             )
-        if solver == "sharded":
-            context.abort(StatusCode.UNIMPLEMENTED, _NO_SHARDED)
 
         # a request-borne config (the bridge's tuned AuctionConfig) beats
         # the launch-time default — without this the sidecar silently
@@ -212,11 +195,14 @@ class PlacementSolverServicer:
     def SolverInfo(self, request, context) -> pb.SolverInfoResponse:
         from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
 
+        from slurm_bridge_tpu_torch.parallel.mesh import device_count, solver_mesh
+
         backend = ensure_backend(self.device)
-        devices = _device_count(backend)
-        # no solver mesh: the multi-device sweep that would span one is
-        # not ported (ROADMAP Queue 1 item 8)
+        devices = device_count(backend)
         mesh = ""
+        if devices > 1:
+            m = solver_mesh(backend=backend)
+            mesh = ",".join(f"{k}={v}" for k, v in m.shape.items())
         return pb.SolverInfoResponse(
             backend=backend, devices=devices, mesh=mesh, solvers=list(SOLVERS)
         )
@@ -333,6 +319,7 @@ class PlacementSolverServicer:
         otherwise the device family, sharded only when the mesh AND the
         solve size warrant it."""
         from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
+        from slurm_bridge_tpu_torch.parallel.mesh import device_count
         from slurm_bridge_tpu_torch.solver.routing import (
             choose_path,
             gang_shard_fraction,
@@ -352,7 +339,7 @@ class PlacementSolverServicer:
         return (
             "sharded"
             if use_sharded(batch.num_shards, snapshot.num_nodes,
-                           _device_count(backend))
+                           device_count(backend))
             else "auction"
         )
 
@@ -390,20 +377,25 @@ class PlacementSolverServicer:
                     [incumbent, np.full(batch.num_shards - p_real, -1, np.int32)]
                 )
         if solver == "sharded":
-            raise NotImplementedError(_NO_SHARDED)
-        import dataclasses
+            from slurm_bridge_tpu_torch.solver.sharded import sharded_place
 
-        key = dataclasses.astuple(cfg)
-        session = self._sessions.get(key)
-        if session is None:
-            if len(self._sessions) >= 8:  # distinct configs are few;
-                self._sessions.clear()  # a churning client can't leak
-            session = self._sessions[key] = DeviceSolver(
-                snapshot, cfg, device=self.device
+            placement = sharded_place(
+                snapshot, batch, cfg, incumbent=incumbent, device=self.device
             )
         else:
-            session.update_snapshot(snapshot)
-        placement = session.solve(batch, incumbent=incumbent)
+            import dataclasses
+
+            key = dataclasses.astuple(cfg)
+            session = self._sessions.get(key)
+            if session is None:
+                if len(self._sessions) >= 8:  # distinct configs are few;
+                    self._sessions.clear()  # a churning client can't leak
+                session = self._sessions[key] = DeviceSolver(
+                    snapshot, cfg, device=self.device
+                )
+            else:
+                session.update_snapshot(snapshot)
+            placement = session.solve(batch, incumbent=incumbent)
         if placement.node_of.shape[0] != p_real:
             from slurm_bridge_tpu_torch.solver.snapshot import Placement
 
@@ -454,22 +446,33 @@ def main(argv: list[str] | None = None) -> int:
     add_observability_flags(parser)
     parser.add_argument("--solver", default="", choices=["", *SOLVERS],
                         help="default solver when requests don't name one "
-                             "(empty = auto: the device auction, or the "
-                             "indexed native packer for small or gang-"
+                             "(empty = auto: the device auction — sharded "
+                             "when the mesh and solve size warrant it — or "
+                             "the indexed native packer for small or gang-"
                              "dominated pin-free batches when the request "
-                             "opted into full routing with solver='auto'; "
-                             "'sharded' is not ported and fails every Place)")
+                             "opted into full routing with solver='auto')")
     parser.add_argument("--rounds", type=int, default=0,
                         help="auction rounds override (0 = config default)")
     parser.add_argument("--distributed", action="store_true",
-                        help="join a multi-host mesh before serving (not "
-                             "ported: ROADMAP Queue 1 item 8)")
+                        help="join a multi-process group before serving "
+                             "(rendezvous from MASTER_ADDR/MASTER_PORT or the "
+                             "Slurm env — parallel/distributed.py); the "
+                             "sharded solver then spans every rank's devices")
     parser.add_argument("--verbose", action="store_true")
     args = parser.parse_args(argv)
     setup_logging(verbose=args.verbose)
 
     if args.distributed:
-        parser.error(f"--distributed: {_NO_SHARDED}")
+        from slurm_bridge_tpu_torch.parallel.distributed import init_distributed
+
+        if init_distributed():
+            import torch.distributed as dist
+
+            log.info(
+                "joined process group: rank %d/%d", dist.get_rank(), dist.get_world_size()
+            )
+        else:
+            log.info("single-process (no rendezvous in env); serving local devices")
 
     cfg = AuctionConfig()
     if args.rounds:

@@ -55,13 +55,6 @@ from slurm_bridge_tpu_torch.solver.snapshot import (
 _KEEP_BOOST = np.float32(1e6)
 
 
-def _no_sharded_sweep() -> NotImplementedError:
-    return NotImplementedError(
-        "the multi-device sharded auction is not ported yet: ROADMAP Queue 1 "
-        "item 8"
-    )
-
-
 @dataclass
 class TickResult:
     """One streaming tick's outcome, shard-aligned with the solved batch."""
@@ -122,11 +115,10 @@ def streaming_place(
     greedy-parity placement, no padding. ``session`` (a
     :class:`~slurm_bridge_tpu_torch.solver.session.DeviceSolver`) keeps the
     snapshot staged across ticks and solves on its own device and config;
-    without one the auction runs on ``device``. ``sharded=True`` needs the
-    multi-device sweep, which is not ported (ROADMAP Queue 1 item 8).
+    without one the auction runs on ``device``. ``sharded=True`` solves
+    with the multi-device sweep (:mod:`sharded`) over every device the
+    process solves on, whatever the engine.
     """
-    if sharded:
-        raise _no_sharded_sweep()
     inc_mask = incumbent >= 0
     solve_batch = batch
     if not preemption and inc_mask.any():
@@ -135,7 +127,7 @@ def streaming_place(
             priority=np.where(inc_mask, batch.priority + _KEEP_BOOST, batch.priority),
         )
     p_real = solve_batch.num_shards
-    if engine == "native":
+    if engine == "native" and not sharded:
         from slurm_bridge_tpu_torch.solver.indexed_native import indexed_place_native
         from slurm_bridge_tpu_torch.solver.routing import native_fit_policy
 
@@ -152,7 +144,13 @@ def streaming_place(
         pad = solve_batch.num_shards - p_real
         if pad:
             solve_inc = np.concatenate([incumbent, np.full(pad, -1, np.int32)])
-    if session is not None:
+    if sharded:
+        from slurm_bridge_tpu_torch.solver.sharded import sharded_place
+
+        placement = sharded_place(
+            snapshot, solve_batch, config, incumbent=solve_inc, device=device
+        )
+    elif session is not None:
         # the device-resident path (the production scheduler's): the
         # snapshot stays staged across ticks; only changed tiers re-upload.
         # The session's OWN config governs this branch — callers owning a
@@ -197,12 +195,12 @@ class StreamingSim:
     #: where the device auction runs: None is the card (or
     #: SBT_BACKEND=cpu), "cpu" the host
     device: object = None
-    #: which engine the last tick ran ("device" or "native")
+    #: which engine the last tick ran ("device", "native" or "sharded")
     last_engine: str = field(init=False, default="")
     assign: np.ndarray = field(init=False)
     _next_job: int = field(init=False)
     #: lazily-created DeviceSolver so the snapshot stays staged across
-    #: ticks (the production scheduler's pattern)
+    #: ticks (the production scheduler's pattern); unused when sharded
     _session: object = field(init=False, default=None)
 
     def __post_init__(self):
@@ -248,8 +246,6 @@ class StreamingSim:
     # ---- solve ----
 
     def tick(self) -> TickResult:
-        if self.sharded:
-            raise _no_sharded_sweep()
         engine = self.engine
         if engine == "auto":
             from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
@@ -266,8 +262,8 @@ class StreamingSim:
                 gang_fraction=gang_shard_fraction(self.batch.gang_id),
                 inc_fraction=incumbent_fraction(self.assign),
             )
-            engine = "native" if route == "native" else "device"
-        if engine != "native":
+            engine = "native" if route == "native" and not self.sharded else "device"
+        if engine != "native" and not self.sharded:
             from slurm_bridge_tpu_torch.solver.session import DeviceSolver
 
             # (re)build the session when absent OR when sim.config changed
@@ -277,13 +273,14 @@ class StreamingSim:
             want = self.config or AuctionConfig()
             if self._session is None or self._session.config != want:
                 self._session = DeviceSolver(self.snapshot, want, device=self.device)
-        self.last_engine = engine
+        self.last_engine = "sharded" if self.sharded else engine
         result = streaming_place(
             self.snapshot,
             self.batch,
             self.assign,
             self.config,
             preemption=self.preemption,
+            sharded=self.sharded,
             session=self._session if engine != "native" else None,
             engine=engine,
             device=self.device,

@@ -185,6 +185,15 @@ DAEMON_MODULES = [
     "slurm_bridge_tpu_torch.bridge.demo",
 ]
 
+#: the multi-device sweep and its bootstrap: the card's
+#: machine has neither grpc, protobuf nor yaml
+SWEEP_MODULES = [
+    "slurm_bridge_tpu_torch.parallel",
+    "slurm_bridge_tpu_torch.parallel.mesh",
+    "slurm_bridge_tpu_torch.parallel.distributed",
+    "slurm_bridge_tpu_torch.solver.sharded",
+]
+
 
 def _foreign_after_import(mod: str) -> list[str]:
     """Modules of JAX, of the JAX package, of grpc, of protobuf or of yaml
@@ -265,20 +274,28 @@ def test_daemons_import_no_jax_grpc_protobuf_or_yaml(mod):
     assert _foreign_after_import(mod) == []
 
 
+def test_sweep_modules_are_ported():
+    assert set(SWEEP_MODULES) <= set(_port_modules())
+
+
+@pytest.mark.parametrize("mod", SWEEP_MODULES)
+def test_sweep_imports_no_jax_grpc_protobuf_or_yaml(mod):
+    """The sweep, its grid and its bootstrap import on the card's machine,
+    and start no process group on import."""
+    assert _foreign_after_import(mod) == []
+
+
 def test_every_reference_module_but_the_unported_has_a_port():
     """Every module of the JAX package has a port module at the same path,
-    except the multi-device sweep (ROADMAP Queue 1 item 8), the TPU health
-    record only the JAX package's bench reads, and the protobuf module
-    whose counterparts are ``wire/messages.py`` and ``wire/schema.py``."""
+    except the TPU health record only the JAX package's bench reads, and
+    the protobuf module whose counterparts are ``wire/messages.py`` and
+    ``wire/schema.py``."""
     ref = _PKG.parent / "slurm_bridge_tpu"
     missing = sorted(
         str(p.relative_to(ref)) for p in ref.rglob("*.py")
         if not (_PKG / p.relative_to(ref)).exists()
     )
-    assert missing == [
-        "parallel/distributed.py", "parallel/mesh.py", "solver/sharded.py",
-        "utils/chipstate.py", "wire/workload_pb2.py",
-    ]
+    assert missing == ["utils/chipstate.py", "wire/workload_pb2.py"]
 
 
 def test_chip_smoke_imports_no_jax():

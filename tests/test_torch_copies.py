@@ -4,6 +4,7 @@ and only the changes listed here. A change is ``(old, new)``, applying
 where ``old`` occurs exactly once, or ``(old, new, n)`` where it occurs
 exactly ``n`` times."""
 
+import ast
 import pathlib
 
 import pytest
@@ -54,16 +55,16 @@ ALLOWED = {
          "        #: where the device auction runs: None is the card (or\n"
          '        #: SBT_BACKEND=cpu), "cpu" the host (parallel/backend.py)\n'
          "        self.device = device\n"),
-        # sharded auto-select counts the torch devices of the solve's backend
+        # sharded auto-select counts the devices the mesh spans for the
+        # scheduler's backend (parallel/mesh.py)
         ("        from slurm_bridge_tpu_torch.parallel.backend import ensure_backend\n"
          "        from slurm_bridge_tpu_torch.solver.routing import use_sharded\n\n"
          "        ensure_backend()\n        import jax\n\n",
-         "        import torch\n\n"
          "        from slurm_bridge_tpu_torch.parallel.backend import ensure_backend\n"
-         "        from slurm_bridge_tpu_torch.solver.routing import use_sharded\n\n"
-         "        backend = ensure_backend(self.device)\n"
-         '        n_devices = torch.cuda.device_count() if backend == "cuda" else 1\n'),
-        ("len(jax.devices()),", "n_devices,"),
+         "        from slurm_bridge_tpu_torch.parallel.mesh import device_count\n"
+         "        from slurm_bridge_tpu_torch.solver.routing import use_sharded\n\n"),
+        ("snapshot.num_nodes, len(jax.devices()),\n",
+         "snapshot.num_nodes,\n            device_count(ensure_backend(self.device)),\n"),
         # the auto route asks the scheduler's own device
         ("            route = choose_path(\n",
          "            from slurm_bridge_tpu_torch.parallel.backend import ensure_backend\n\n"
@@ -72,14 +73,12 @@ ALLOWED = {
          "                snapshot.num_nodes,\n"
          "                backend_name=ensure_backend(self.device),\n"
          "                gang_fraction="),
-        # the multi-device sweep is not ported: never fall through
-        ("            from slurm_bridge_tpu_torch.solver.sharded import sharded_place\n\n"
-         '            self.last_route = "auction-sharded"\n'
-         "            placement = sharded_place(\n"
-         "                snapshot, batch, self.auction_config, incumbent=incumbent\n",
-         "            raise NotImplementedError(\n"
-         '                "the multi-device sharded auction is not ported yet: ROADMAP "\n'
-         '                "Queue 1 item 8"\n'),
+        # the multi-device sweep runs on the scheduler's device
+        ("                snapshot, batch, self.auction_config, incumbent=incumbent\n"
+         "            )\n        else:\n",
+         "                snapshot, batch, self.auction_config, incumbent=incumbent,\n"
+         "                device=self.device,\n"
+         "            )\n        else:\n"),
         ("                self._solver = DeviceSolver(snapshot, self.auction_config)\n",
          "                self._solver = DeviceSolver(\n"
          "                    snapshot, self.auction_config, device=self.device\n"
@@ -238,26 +237,18 @@ ALLOWED = {
     "agent/journal.py": [],
     "agent/cli.py": [],
     "shard/reconcile.py": [],
-    # what the port does not carry yet
-    "shard/__init__.py": [
-        ("See docs/sharding.md for the full design walkthrough.\n",
-         "See docs/sharding.md for the full design walkthrough.\n\n"
-         "The port carries all of it but one route: the multi-device sweep a big\n"
-         "shard would take on two or more cards (ROADMAP Queue 1 item 8), which\n"
-         "raises ``NotImplementedError``; each shard's auction runs on the\n"
-         "executor's ``device``.\n"),
-    ],
-    # each shard's auction runs on the executor's device; the multi-device
-    # sweep is not ported, and a device failure propagates (no CPU fallback)
+    "shard/__init__.py": [],
+    # each shard's auction, and the multi-device sweep, run on the
+    # executor's device; a device failure propagates (no CPU fallback)
     "shard/executor.py": [
         ("   and PROMOTES big shards to the multi-device shard_map sweep\n"
          "   (``solver/sharded.py`` — the MULTICHIP_r05 dp4×mp2 parity dryrun,\n"
          "   now on the routed path) with a CPU fallback to the native packer if\n"
          "   the device solve is unavailable or raises;\n",
          "   and runs the device auction on the executor's ``device`` — the card,\n"
-         "   unless asked for the CPU. Big shards would be promoted to the\n"
-         "   multi-device sweep, which is not ported (ROADMAP Queue 1 item 8): with\n"
-         "   fewer than two cards they stay on the single-device auction, and a\n"
+         "   unless asked for the CPU — and PROMOTES big shards to the multi-device\n"
+         "   sweep (``solver/sharded.py``) when the process solves on two or more\n"
+         "   devices; with fewer they stay on the single-device auction, and a\n"
          "   device failure propagates instead of turning into a CPU solve;\n"),
         ("        bucket: int = 1024,\n", "        bucket: int = 1024,\n        device=None,\n"),
         ("        self.bucket = bucket\n",
@@ -270,7 +261,7 @@ ALLOWED = {
          "        # anything that goes wrong degrades to the native packer — the\n"
          "        # CPU fallback that keeps a device-less (or wedged-chip) host\n"
          "        # solving every tick\n",
-         "        # collectives would ride the multi-device sweep whenever ≥2 cards\n"
+         "        # collectives rides the multi-device sweep whenever ≥2 devices\n"
          "        # exist; with fewer it stays on the single-device auction below\n"),
         ('        if self.backend == "auto":\n            route = choose_path(\n'
          "                batch.num_shards,\n                snapshot.num_nodes,\n",
@@ -295,8 +286,19 @@ ALLOWED = {
             if len(jax.devices()) < 2:
                 return None
             from slurm_bridge_tpu_torch.solver.sharded import sharded_place
+''',
+         '''        """The multi-device sweep, or None (→ the single-device auction)
+        when the process solves on fewer than two devices. Nothing here
+        turns a device failure into a CPU solve: it propagates."""
+        from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
+        from slurm_bridge_tpu_torch.parallel.mesh import device_count
 
-            p_real = batch.num_shards
+        if device_count(ensure_backend(self.device)) < 2:
+            return None
+        from slurm_bridge_tpu_torch.solver.sharded import sharded_place
+'''),
+        # no try/except: the body moves out one level
+        ('''            p_real = batch.num_shards
             inc = incumbent
             if self.bucket:
                 batch = pad_batch(batch, self.bucket)
@@ -326,22 +328,26 @@ ALLOWED = {
             )
             return None
 ''',
-         '''        """The multi-device sweep, or None (→ the single-device auction)
-        when the process has fewer than two cards. The sweep itself is not
-        ported (ROADMAP Queue 1 item 8), and nothing here turns a device
-        failure into a CPU solve."""
-        import torch
-
-        from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
-
-        backend = ensure_backend(self.device)
-        n_devices = torch.cuda.device_count() if backend == "cuda" else 1
-        if n_devices < 2:
-            return None
-        raise NotImplementedError(
-            "the multi-device sharded auction is not ported yet: ROADMAP "
-            "Queue 1 item 8"
-        )
+         '''        p_real = batch.num_shards
+        inc = incumbent
+        if self.bucket:
+            batch = pad_batch(batch, self.bucket)
+            if batch.num_shards != p_real:
+                inc = np.concatenate(
+                    [inc, np.full(batch.num_shards - p_real, -1, np.int32)]
+                )
+        with self._device_lock:
+            placement = sharded_place(
+                snapshot, batch, self.auction_config, incumbent=inc,
+                device=self.device,
+            )
+        if placement.node_of.shape[0] != p_real:
+            placement = Placement(
+                node_of=placement.node_of[:p_real],
+                placed=placement.placed[:p_real],
+                free_after=placement.free_after,
+            )
+        return placement
 '''),
     ],
     # ---- the solver's remaining entry points: the obs modules the
@@ -464,3 +470,33 @@ def test_copy_matches_reference(rel):
         assert want.count(old) == n, f"{rel}: allowed change no longer applies: {old!r}"
         want = want.replace(old, new)
     assert (ROOT / "slurm_bridge_tpu_torch" / rel).read_text() == want
+
+
+#: (port file, function) → the (reference text, port text) replacements
+#: of a function the port copies into a module of its own
+ALLOWED_FUNCTIONS = {
+    ("parallel/mesh.py", "pad_to_multiple"): [],
+    # the rendezvous is torch.distributed's
+    ("parallel/distributed.py", "slurm_process_env"): [
+        ("which is all ``jax.distributed``\n", "which is all the rendezvous\n"),
+    ],
+}
+
+
+def _function_source(path: pathlib.Path, name: str) -> str:
+    src = path.read_text()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.get_source_segment(src, node)
+    raise AssertionError(f"{path}: no function {name}")
+
+
+@pytest.mark.parametrize("rel,name", sorted(ALLOWED_FUNCTIONS))
+def test_copied_function_matches_reference(rel, name):
+    want = _function_source(ROOT / "slurm_bridge_tpu" / rel, name)
+    want = want.replace("slurm_bridge_tpu.", "slurm_bridge_tpu_torch.")
+    for old, new, *times in ALLOWED_FUNCTIONS[(rel, name)]:
+        n = times[0] if times else 1
+        assert want.count(old) == n, f"{rel}:{name}: allowed change no longer applies: {old!r}"
+        want = want.replace(old, new)
+    assert _function_source(ROOT / "slurm_bridge_tpu_torch" / rel, name) == want

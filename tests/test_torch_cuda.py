@@ -514,3 +514,29 @@ def test_sidecar_place_on_card_equals_cpu(cuda):
     assert chip_smoke.response_digest(pb, card) == chip_smoke.response_digest(pb, cpu)
     info = card_sv.SolverInfo(pb.SolverInfoRequest(), LocalContext())
     assert (info.backend, info.devices) == ("cuda", torch.cuda.device_count())
+
+
+@pytest.mark.cuda
+def test_sweep_on_card_blocks_equals_cpu(cuda):
+    """The multi-device sweep on a 2×2 grid of ``cuda:0`` blocks: four
+    kernel launches per round, each block with its global offsets, and the
+    placement of the same sweep on CPU blocks (the dense block path) and
+    of the single-block solve; deterministic."""
+    from slurm_bridge_tpu_torch.parallel.mesh import solver_mesh
+    from slurm_bridge_tpu_torch.solver.sharded import sharded_place
+
+    snap, batch = random_scenario(301, 1500, seed=13, load=0.8,
+                                  gpu_fraction=0.15, gang_fraction=0.05)
+    cfg = AuctionConfig(rounds=8, candidates=0)
+    grid = solver_mesh([cuda] * 4, dp=2, mp=2)
+    before = kern.LAUNCHES
+    card = sharded_place(snap, batch, cfg, mesh=grid)
+    assert kern.LAUNCHES - before == 8 * 4
+    again = sharded_place(snap, batch, cfg, mesh=grid)
+    cpu_grid = solver_mesh([torch.device("cpu")] * 4, dp=2, mp=2)
+    cpu = sharded_place(snap, batch, cfg, mesh=cpu_grid, device="cpu")
+    single = auction_place(snap, batch, cfg, device="cpu")
+    np.testing.assert_array_equal(card.node_of, again.node_of)
+    np.testing.assert_array_equal(card.node_of, cpu.node_of)
+    np.testing.assert_array_equal(card.free_after, cpu.free_after)
+    np.testing.assert_array_equal(card.node_of, single.node_of)

@@ -289,13 +289,17 @@ def test_no_card_no_cpu_solve(backend, monkeypatch):
 
 
 def test_unported_routes_raise(monkeypatch):
-    """The multi-device sharded auction is not ported: it raises
-    NotImplementedError, and the sharded route never falls through to the
-    single-device solve. shard= is ported: it builds the port's executor
-    on the scheduler's device; so is solver_endpoint=, which dials the
-    PlacementSolver sidecar (no connection is made until a tick)."""
+    """Every route of the tick is ported. The forced sharded route runs
+    the multi-device sweep (route ``"auction-sharded"``) and binds the JAX
+    package's pods — a 1×1 grid on the port's one CPU device, dp4×mp2 on
+    the JAX package's eight, which place alike. The auto-select takes it
+    with four devices past the floor, before any single-device solve.
+    shard= builds the port's executor on the scheduler's device;
+    solver_endpoint= dials the PlacementSolver sidecar (no connection is
+    made until a tick)."""
     from slurm_bridge_tpu_torch.bridge.scheduler import PlacementScheduler
     from slurm_bridge_tpu_torch.bridge.store import ObjectStore
+    from slurm_bridge_tpu_torch.parallel import mesh as port_mesh
     from slurm_bridge_tpu_torch.shard import ShardConfig, ShardExecutor
     from slurm_bridge_tpu_torch.wire.rpc import ServiceClient
 
@@ -306,21 +310,21 @@ def test_unported_routes_raise(monkeypatch):
     assert isinstance(remote._remote, ServiceClient)
     remote._remote.close()
 
+    want = World("slurm_bridge_tpu", dict(backend="auction"))
+    want.sched.sharded = True
     explicit = World("slurm_bridge_tpu_torch", dict(backend="auction"))
     explicit.sched.sharded = True
-    with pytest.raises(NotImplementedError, match="item 8"):
-        explicit.tick()
-    assert explicit.sched.last_route == ""
+    got = explicit.tick()
+    assert got == want.tick()
+    assert got["route"] == "auction-sharded" and got["placed"] > 0
+    assert explicit.sched._solver is None
 
-    # auto-select on a host with four cards: the sweep would engage at
-    # this size, and must raise before any single-device solve
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(port_mesh, "process_devices", lambda backend: [cpu] * 4)
     auto = World("slurm_bridge_tpu_torch", dict(backend="auction"))
-    auto.sched.device = None
     auto.sched.sharded_threshold = 1
-    with pytest.raises(NotImplementedError, match="item 8"):
-        auto.tick()
+    tick = auto.tick()
+    assert tick["route"] == "auction-sharded" and tick["digest"] == got["digest"]
     assert auto.sched._solver is None
 
 

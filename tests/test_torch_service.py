@@ -5,11 +5,11 @@ The same ``PlaceRequest`` bytes — chip_smoke.py's ``place_request`` over
 ``random_inventory``'s lists — go through both packages' servicers in
 process with the dense auction pinned (the port on the CPU): the
 serialized responses are equal, ``free_after`` included, and so are they
-after a node is drained, which the port solves on its cached session. The
-multi-device sweep is not ported: a Place that names it, or auto-routes to
-it on two or more cards, fails with UNIMPLEMENTED and never falls back to
-another engine. ``SolverInfo`` reports the torch backend and its card
-count. ``PlacementScheduler(solver_endpoint=)`` ticks through the port's
+after a node is drained, which the port solves on its cached session. A
+Place that names the multi-device sweep, or auto-routes to it on two or
+more devices, solves on it (eight CPU blocks here) and answers the JAX
+package's bytes. ``SolverInfo`` reports the torch backend, its device
+count and the sweep's grid; ``--distributed`` joins a process group. ``PlacementScheduler(solver_endpoint=)`` ticks through the port's
 sidecar as the JAX package's ticks through its own.
 """
 
@@ -24,12 +24,14 @@ import chip_smoke
 import slurm_bridge_tpu.solver.auction as jax_auction
 import slurm_bridge_tpu.solver.service as jax_service
 import slurm_bridge_tpu.wire as jax_wire
+import slurm_bridge_tpu_torch.parallel.distributed as port_distributed
+import slurm_bridge_tpu_torch.parallel.mesh as port_mesh
 import slurm_bridge_tpu_torch.solver.auction as port_auction
 import slurm_bridge_tpu_torch.solver.routing as port_routing
 import slurm_bridge_tpu_torch.solver.service as port_service
 import slurm_bridge_tpu_torch.wire as port_wire
 from slurm_bridge_tpu_torch.solver.snapshot import random_inventory
-from slurm_bridge_tpu_torch.wire import RpcError, StatusCode, convert
+from slurm_bridge_tpu_torch.wire import convert
 from slurm_bridge_tpu_torch.wire.rpc import LocalContext
 
 INVENTORY = dict(seed=42, load=0.7, gpu_fraction=0.15, gang_fraction=0.05)
@@ -79,33 +81,47 @@ def test_place_equals_the_jax_package_and_reuses_the_session_after_a_drain():
     assert chip_smoke.place_digest(got2) != chip_smoke.place_digest(got)
 
 
-def test_sharded_place_is_unimplemented_and_never_falls_back():
+def _cpu_blocks(monkeypatch, count):
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(port_mesh, "process_devices", lambda backend: [cpu] * count)
+
+
+def _jax_sharded_place(raw):
+    jax_sv, _ = _servicers()
+    return jax_sv.Place(jax_wire.pb.PlaceRequest.FromString(raw), None)
+
+
+def test_sharded_place_is_unimplemented_and_never_falls_back(monkeypatch):
+    """``solver="sharded"`` solves on the multi-device sweep — eight CPU
+    blocks, the JAX package's eight virtual devices — with no session
+    built, and answers the JAX package's response bytes."""
+    _cpu_blocks(monkeypatch, 8)
     _, port_sv = _servicers()
-    req = port_wire.pb.PlaceRequest.FromString(_request(50, 100, solver="sharded"))
-    with pytest.raises(RpcError) as ei:
-        port_sv.Place(req, LocalContext())
-    assert ei.value.code() == StatusCode.UNIMPLEMENTED
-    assert "Queue 1 item 8" in ei.value.details()
+    raw = _request(50, 100, solver="sharded")
+    got = port_sv.Place(port_wire.pb.PlaceRequest.FromString(raw), LocalContext())
+    want = _jax_sharded_place(raw)
+    assert got.solver == want.solver == "sharded" and got.placed > 0
+    assert chip_smoke.response_digest(port_wire.pb, got) == \
+        chip_smoke.response_digest(jax_wire.pb, want)
     assert port_sv._sessions == {}
 
 
 def test_auto_route_to_the_sweep_on_two_cards_is_unimplemented(monkeypatch):
-    """With two cards and a solve past the sweep's floor, the device
-    family's auto route picks the sweep; the port refuses it instead of
-    solving on one card."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    """With two devices and a solve past the sweep's floor, the device
+    family's auto route picks the sweep (a dp2×mp1 grid, which places as
+    the JAX package's dp4×mp2 does); SolverInfo reports the grid."""
+    _cpu_blocks(monkeypatch, 2)
     real = port_routing.use_sharded
     monkeypatch.setattr(port_routing, "use_sharded",
                         lambda p, n, d, threshold=1: real(p, n, d, threshold))
-    servicer = port_service.PlacementSolverServicer(_dense(port_auction))
-    req = port_wire.pb.PlaceRequest.FromString(_request(50, 100, solver=""))
-    with pytest.raises(RpcError) as ei:
-        servicer.Place(req, LocalContext())
-    assert ei.value.code() == StatusCode.UNIMPLEMENTED
-    assert servicer._sessions == {}
+    servicer = port_service.PlacementSolverServicer(_dense(port_auction), device="cpu")
+    raw = _request(50, 100, solver="")
+    got = servicer.Place(port_wire.pb.PlaceRequest.FromString(raw), LocalContext())
+    assert got.solver == "sharded" and servicer._sessions == {}
+    assert chip_smoke.place_digest(got) == chip_smoke.place_digest(
+        _jax_sharded_place(_request(50, 100, solver="sharded")))
     info = servicer.SolverInfo(port_wire.pb.SolverInfoRequest(), LocalContext())
-    assert (info.backend, info.devices, info.mesh) == ("cuda", 2, "")
+    assert (info.backend, info.devices, info.mesh) == ("cpu", 2, "dp=2,mp=1")
 
 
 def test_solver_info_reports_the_torch_backend(monkeypatch):
@@ -133,10 +149,20 @@ def test_solver_info_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
         )
 
 
-def test_distributed_flag_is_refused():
+def test_distributed_flag_is_refused(monkeypatch):
+    """``--distributed`` joins the process group through
+    ``init_distributed`` before the sidecar serves (stopped here at the
+    join)."""
+    joined = []
+
+    def join(*a, **k):
+        joined.append((a, k))
+        raise SystemExit(7)
+
+    monkeypatch.setattr(port_distributed, "init_distributed", join)
     with pytest.raises(SystemExit) as ei:
         port_service.main(["--distributed", "--listen", "unused.sock"])
-    assert ei.value.code == 2
+    assert ei.value.code == 7 and joined == [((), {})]
 
 
 def _remote_tick(pkg, sock, wire, service, auction, scheduler_mod, objects, store_cls,

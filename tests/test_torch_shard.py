@@ -1,9 +1,9 @@
 """The port's shard executor where the port differs from the JAX package:
-each shard's auction runs on the executor's device, the multi-device
-sweep is refused rather than faked, an attached fleet gets each keyed
-shard's solve (and a shard it declines is solved inline), and a
-failing device solve surfaces out of the tick instead of turning into a
-CPU solve. Where the two packages do the same, they give the same
+each shard's auction runs on the executor's device, a big shard takes the
+multi-device sweep when the process solves on two or more devices, an
+attached fleet gets each keyed shard's solve (and a shard it declines is
+solved inline), and a failing device solve — the sweep's too — surfaces
+out of the tick instead of turning into a CPU solve. Where the two packages do the same, they give the same
 placements: the executor's auction route against the JAX package's on the
 same inventory, no tolerance."""
 
@@ -18,10 +18,11 @@ import slurm_bridge_tpu.core.types as jax_types
 import slurm_bridge_tpu.shard as jax_shard
 import slurm_bridge_tpu.solver as jax_solver
 import slurm_bridge_tpu_torch.core.types as port_types
-import slurm_bridge_tpu_torch.parallel.backend as port_backend
+import slurm_bridge_tpu_torch.parallel.mesh as port_mesh
 import slurm_bridge_tpu_torch.shard as port_shard
 import slurm_bridge_tpu_torch.solver as port_solver
 import slurm_bridge_tpu_torch.solver.session as port_session
+import slurm_bridge_tpu_torch.solver.sharded as port_sharded
 from slurm_bridge_tpu_torch.bridge.scheduler import PlacementScheduler
 from slurm_bridge_tpu_torch.parallel.backend import BackendUnavailable
 from slurm_bridge_tpu_torch.solver.snapshot import random_inventory
@@ -114,15 +115,42 @@ def test_forced_device_solve_with_one_device_stays_on_the_single_device_auction(
     assert "auction-sharded" not in ex.last_routes
 
 
-def test_two_cards_ask_for_the_unported_sweep(monkeypatch):
-    monkeypatch.setattr(port_backend, "ensure_backend", lambda device=None: "cuda")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    ex = port_shard.ShardExecutor(
-        port_shard.ShardConfig(max_nodes_per_shard=16, workers=1, device_solve=True),
-        backend="auction", bucket=64,
+def _two_devices(monkeypatch):
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(port_mesh, "process_devices", lambda backend: [cpu, cpu])
+
+
+def _forced_sweep(package, types, **kw):
+    ex = package.ShardExecutor(
+        package.ShardConfig(max_nodes_per_shard=16, workers=1, device_solve=True),
+        backend="auction", bucket=64, **kw,
     )
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        _solve(ex, port_types)
+    return ex, _solve(ex, types)
+
+
+def test_two_cards_ask_for_the_unported_sweep(monkeypatch):
+    """With two devices every forced shard takes the multi-device sweep
+    (a dp2×mp1 grid here, dp4×mp2 on the JAX package's eight virtual
+    devices): the sweep's result does not depend on the grid, so the
+    placements are the JAX package's."""
+    _two_devices(monkeypatch)
+    port, got = _forced_sweep(port_shard, port_types, device="cpu")
+    ref, want = _forced_sweep(jax_shard, jax_types)
+    assert port.last_routes == ref.last_routes == {"auction-sharded": port.last_shards_used}
+    assert got == want and got[0]
+
+
+def test_a_raising_sweep_propagates_instead_of_a_cpu_solve(monkeypatch):
+    """The JAX package's executor catches a failing sweep and packs the
+    shard natively; the port's lets it out."""
+    _two_devices(monkeypatch)
+
+    def lost(*a, **k):
+        raise RuntimeError("block launch failed")
+
+    monkeypatch.setattr(port_sharded, "sharded_place", lost)
+    with pytest.raises(RuntimeError, match="block launch failed"):
+        _forced_sweep(port_shard, port_types, device="cpu")
 
 
 def test_an_attached_fleet_is_refused():

@@ -77,7 +77,8 @@ def _pinned_auction(sc, auction):
 def _single_device_shards(sc):
     """Each shard on the single-device engine: the JAX package's tests run
     on eight virtual CPU devices, where a big shard would take its
-    multi-device sweep, which the port does not carry."""
+    multi-device sweep, and the port here on one CPU device, where it
+    would not (the sweep's digest twin is in tests/test_torch_sharded.py)."""
     if sc.sharding is None:
         return sc
     return dataclasses.replace(

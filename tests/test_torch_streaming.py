@@ -6,8 +6,9 @@ through both packages with the device engine and the dense auction
 pinned (the port on the CPU). Every tick's ``node_of``, kept, preempted
 and started shards are equal, no tolerance; ``free_after`` is equal too.
 The incumbent pin, the no-preemption boost, the ``bucket`` padding and the
-session rebuild on a config change are held the same way. The sharded
-route is not ported and raises.
+session rebuild on a config change are held the same way, and so is the
+sharded route: the multi-device sweep on eight CPU blocks against the JAX
+package's on its eight virtual devices.
 """
 
 from __future__ import annotations
@@ -16,9 +17,11 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import slurm_bridge_tpu.solver.auction as jax_auction
 import slurm_bridge_tpu.solver.streaming as jax_streaming
+import slurm_bridge_tpu_torch.parallel.mesh as port_mesh
 import slurm_bridge_tpu_torch.solver.auction as port_auction
 import slurm_bridge_tpu_torch.solver.streaming as port_streaming
 from chip_smoke import CHURN, churn_summary, churn_tick
@@ -132,15 +135,27 @@ def test_auto_engine_on_the_cpu_backend_is_native_like_the_jax_package():
     assert port_sim.last_engine == "native"
 
 
-def test_sharded_route_is_not_ported():
+def test_sharded_route_is_not_ported(monkeypatch):
+    """``sharded=True`` solves on the multi-device sweep over the process's
+    devices — eight CPU blocks here, the JAX package's eight virtual
+    devices there — pins included, equal tick for tick."""
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(port_mesh, "process_devices", lambda backend: [cpu] * 8)
     snap, batch = port_streaming.random_scenario(50, 100, seed=1)
-    inc = np.full(batch.num_shards, -1, np.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port_streaming.streaming_place(snap, batch, inc, sharded=True, device="cpu")
-    _, sim = _sims(num_nodes=50, num_jobs=100)
-    sim.sharded = True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        sim.tick()
+    first = port_auction.auction_place(snap, batch, _dense(port_auction), device="cpu")
+    inc = np.where(first.placed, first.node_of, -1).astype(np.int32)
+    want = jax_streaming.streaming_place(snap, batch, inc, _dense(jax_auction), sharded=True)
+    got = port_streaming.streaming_place(snap, batch, inc, _dense(port_auction),
+                                         sharded=True, device="cpu")
+    _equal(got, want)
+    assert got.kept.any()
+    jax_sim, port_sim = _sims(num_nodes=50, num_jobs=100)
+    jax_sim.sharded = port_sim.sharded = True
+    jax_rng, port_rng = np.random.default_rng(0), np.random.default_rng(0)
+    for i in range(2):
+        _equal(_churn(port_sim, port_streaming, port_rng, i),
+               _churn(jax_sim, jax_streaming, jax_rng, i))
+        assert port_sim.last_engine == "sharded" and port_sim._session is None
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -1,5 +1,6 @@
 """Sharded placement (``tests/test_shard.py``): the plan, demand routing,
-the cross-shard reconcile pass and the executor, the sharding-off
+the cross-shard reconcile pass and the executor — its route to the
+multi-device sweep on eight CPU blocks included — the sharding-off
 fixture and a sharded scenario through the whole stack, run against the
 port."""
 
@@ -7,11 +8,12 @@ from test_torch_twins import load_twin
 
 globals().update(load_twin(
     "test_shard",
-    drop=[
-        # the multi-device sweep (ROADMAP Queue 1 item 8) is not ported,
-        # and the port has no CPU fallback for a device solve by design:
-        # tests/test_torch_shard.py holds what the port does instead
-        "test_executor_device_sharded_route_with_cpu_fallback",
-        "test_multichip_dp4_mp2_parity_at_least_90pct",
+    rewrites=[
+        # the port's grid takes its own devices: the eight CPU blocks the
+        # twins stand in for the reference's eight virtual XLA devices
+        ("    devices = jax.devices()\n",
+         "    from slurm_bridge_tpu_torch.parallel.mesh import process_devices\n\n"
+         '    devices = process_devices("cpu")\n'),
     ],
+    eight_devices=True,
 ))

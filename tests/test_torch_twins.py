@@ -29,10 +29,13 @@ GRPC_AS_PORT_ERRORS = (
 REGISTRY: dict[str, tuple[tuple, tuple]] = {}
 
 
-def load_twin(stem: str, *, rewrites=(), drop=()) -> dict:
+def load_twin(stem: str, *, rewrites=(), drop=(), eight_devices: bool = False) -> dict:
     """The namespace of ``tests/<stem>.py`` run against the port, without
     the tests in ``drop``. Each rewrite must apply, and each dropped name
-    must exist, so the twin fails loudly when the reference moves on."""
+    must exist, so the twin fails loudly when the reference moves on.
+    ``eight_devices``: the port solves on eight CPU blocks
+    (:func:`_port_eight_cpu_blocks`), for a reference file whose tests ask
+    for two or more devices."""
     src = (TESTS / f"{stem}.py").read_text()
     src = src.replace("slurm_bridge_tpu.", "slurm_bridge_tpu_torch.")
     for old, new in rewrites:
@@ -50,6 +53,8 @@ def load_twin(stem: str, *, rewrites=(), drop=()) -> dict:
         del ns[name]
     ns["_port_entry_points_on_the_cpu"] = _port_entry_points_on_the_cpu
     ns["_port_module_on_the_cpu"] = _port_module_on_the_cpu
+    if eight_devices:
+        ns["_port_eight_cpu_blocks"] = _port_eight_cpu_blocks
     REGISTRY[stem] = (tuple(rewrites), tuple(drop))
     return ns
 
@@ -86,6 +91,24 @@ def _port_module_on_the_cpu():
         jax_colpool.reset()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _port_eight_cpu_blocks():
+    """The port's process devices as eight CPU blocks, for the whole
+    module: what ``tests/conftest.py``'s eight virtual XLA devices are to
+    the reference, so a route that asks for two or more devices (the
+    multi-device sweep) takes it in the twin as in the reference."""
+    import torch
+
+    from slurm_bridge_tpu_torch.parallel import mesh as port_mesh
+
+    real = port_mesh.process_devices
+    cpu = torch.device("cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_mesh, "process_devices",
+                   lambda backend: [cpu] * 8 if backend == "cpu" else real(backend))
+        yield
+
+
 def _tests_in(ns: dict) -> set[str]:
     return {
         k for k, v in ns.items()
@@ -105,7 +128,7 @@ def _tests_in(ns: dict) -> set[str]:
     "test_admission", "test_policy", "test_colstore", "test_agent",
     "test_bridge", "test_client", "test_races", "test_resilience",
     "test_kubeapi", "test_vkhttp", "test_demo", "test_utils", "test_obs",
-    "test_flight",
+    "test_flight", "test_distributed",
 ])
 def test_twin_runs_every_reference_test_it_does_not_drop(stem):
     """Each twin file carries every test of its reference file except the

@@ -58,8 +58,19 @@ with the busiest node drained. It prints each Place's assignment digest
 (``place_digest``), response digest (``response_digest``: the serialized
 response with ``solve_ms`` zeroed), placed count and drained node.
 
-chip_smoke.py holds the port's solve, tick, simulator, streaming and
-sidecar runs on the card to these numbers.
+``--sharded``: runs the JAX package's multi-device sweep (``sharded_place``)
+on the headline ``random_scenario`` (``--nodes``/``--jobs`` override the
+counts) over four virtual CPU devices as a ``solver_mesh(devices[:4],
+dp=2, mp=2)`` — four blocks of 28,818 shards × 5,000 nodes — with the
+dense config, and prints its placed count and ``node_of`` digest. Then it
+runs one forced-sharded ``PlacementScheduler`` tick (``sharded=True``,
+``backend="auction"``, ``AuctionConfig(rounds=8, candidates=0)``) over the
+typed headline inventory as ``--tick`` builds it, with the sweep's mesh
+cut to one device (a 1×1 mesh, the one card chip_smoke.py has), and prints
+its route and tick digest.
+
+chip_smoke.py holds the port's solve, tick, simulator, streaming, sidecar
+and sweep runs on the card to these numbers.
 
     JAX_PLATFORMS=cpu python tools/port_reference.py --nodes 2000 --jobs 10000
     JAX_PLATFORMS=cpu python tools/port_reference.py --tick --nodes 10000 --jobs 50000
@@ -69,6 +80,7 @@ sidecar runs on the card to these numbers.
     JAX_PLATFORMS=cpu python tools/port_reference.py --churn
     JAX_PLATFORMS=cpu python tools/port_reference.py --place --nodes 10000 --jobs 50000
     JAX_PLATFORMS=cpu python tools/port_reference.py --bridge
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sharded
 """
 
 from __future__ import annotations
@@ -83,6 +95,11 @@ import sys
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+if "--sharded" in sys.argv:
+    # the sweep's 2x2 mesh needs four devices, fixed before jax starts
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4"
+    ).strip()
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
@@ -111,7 +128,8 @@ from slurm_bridge_tpu.solver.snapshot import random_scenario  # noqa: E402
 SCENARIO = dict(load=0.7, gpu_fraction=0.15, gang_fraction=0.05)
 
 
-def run_ticks(num_nodes: int, num_jobs: int, seed: int, ticks: int = 2) -> dict:
+def run_ticks(num_nodes: int, num_jobs: int, seed: int, ticks: int = 2,
+              sharded: bool | None = None) -> dict:
     import slurm_bridge_tpu.bridge.objects as objects
     from slurm_bridge_tpu.bridge.objects import Pod
     from slurm_bridge_tpu.bridge.scheduler import PlacementScheduler
@@ -126,7 +144,7 @@ def run_ticks(num_nodes: int, num_jobs: int, seed: int, ticks: int = 2) -> dict:
     load_s = time.perf_counter() - t0
     sched = PlacementScheduler(
         store, InventoryClient(pb, convert, partitions, nodes), backend="auction",
-        inventory_ttl=0,
+        inventory_ttl=0, sharded=sharded,
         auction_config=AuctionConfig(rounds=8, candidates=0, use_pallas=False),
     )
     out = []
@@ -279,6 +297,39 @@ def run_bridge(num_nodes: int, num_jobs: int, seed: int) -> dict:
     }
 
 
+def run_sharded(num_nodes: int, num_jobs: int, seed: int) -> dict:
+    import jax
+
+    import slurm_bridge_tpu.solver.sharded as sharded_mod
+    from slurm_bridge_tpu.parallel.mesh import solver_mesh
+
+    devices = jax.devices()
+    if len(devices) < 4:
+        raise SystemExit(f"--sharded needs 4 devices, jax has {len(devices)}")
+    snap, batch = random_scenario(num_nodes, num_jobs, seed=seed, **SCENARIO)
+    cfg = AuctionConfig(rounds=8, candidates=0, use_pallas=False)
+    mesh = solver_mesh(devices[:4], dp=2, mp=2)
+    t0 = time.perf_counter()
+    pl = sharded_mod.sharded_place(snap, batch, cfg, mesh=mesh)
+    secs = time.perf_counter() - t0
+    # the forced-sharded tick on a 1x1 mesh: the scheduler asks the sweep
+    # for its default mesh, cut here to the first device
+    one = solver_mesh(devices[:1])
+    sharded_mod.solver_mesh = lambda: one
+    tick = run_ticks(num_nodes, num_jobs, seed, ticks=1, sharded=True)
+    return {
+        "sharded": {"nodes": num_nodes, "jobs": num_jobs, "seed": seed, **SCENARIO},
+        "shards": batch.num_shards,
+        "config": "AuctionConfig(rounds=8, candidates=0, use_pallas=False), "
+        "solver_mesh(devices[:4], dp=2, mp=2)",
+        "placed_jobs": len(pl.by_job(batch)),
+        "placed_shards": int(pl.placed.sum()),
+        "node_of_sha256": hashlib.sha256(pl.node_of.astype("<i4").tobytes()).hexdigest(),
+        "cpu_seconds_wall": round(secs, 3),
+        "tick": {"mesh": "1x1", **tick},
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=None,
@@ -298,10 +349,20 @@ def main() -> None:
                     help="run the solver sidecar's Place on the typed inventory")
     ap.add_argument("--bridge", action="store_true",
                     help="run the Bridge's first placing tick over the fake Slurm CLI")
+    ap.add_argument("--sharded", action="store_true",
+                    help="run the multi-device sweep on a 2x2 mesh of CPU devices and "
+                    "one forced-sharded tick on a 1x1 mesh")
     args = ap.parse_args()
     if args.bridge:
         res = run_bridge(args.nodes or BRIDGE["num_nodes"], args.jobs or BRIDGE["num_jobs"],
                          args.seed)
+        print(json.dumps({
+            **res,
+            "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
+        }))
+        return
+    if args.sharded:
+        res = run_sharded(args.nodes or 10_000, args.jobs or 50_000, args.seed)
         print(json.dumps({
             **res,
             "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
