@@ -75,15 +75,24 @@ which fails the run:
    per solve; each kernel call of the first solve after the restart is
    held bit-exact against its plain version on its own operands. Prints
    ``recovery_ms``, the WAL records and snapshots and each tick's phases;
-8. the sharded tick: ``full_500kx100k`` at scale 0.1 (10,000 nodes in 16
-   partitions, 50,000 jobs, 3 ticks) with ``ShardConfig(max_nodes_per_shard
-   =8192, workers=2, device_solve=False)`` and the same pinned engine. The
-   plan must have at least two shards, every shard's solve must launch the
-   kernel 8 times, tick 0's kernel calls are held bit-exact against the
-   plain version, and the ``digest``, ``final_state_digest``,
-   ``bound_total`` and cross-shard ``reconcile_placed`` must equal the JAX
-   package's (:data:`SHARD_REFERENCE`). Prints the shard solves (rows,
-   nodes, launches, ms) and each tick's phases;
+8. the sharded tick at the headline's full size: ``full_500kx100k``
+   uncut (100,000 nodes in 16 partitions, 500,000 front-loaded jobs, 5 %
+   gangs, 15 % GPU nodes, its 3 ticks) with
+   ``ShardConfig(max_nodes_per_shard=8192, workers=2, device_solve=False)``
+   and the same pinned engine, under its own deadline
+   (:data:`SHARD_DEADLINE_S`). The plan must have at least two shards,
+   every shard's solve must launch the kernel 8 times, every kernel call
+   of tick 0 (round 0 and the last round of its first and largest shard
+   solves among them) is held bit-exact against the plain version on its
+   own operands, and the ``digest``, ``final_state_digest``, ``bound_total`` and cross-shard
+   ``reconcile_placed`` must equal the JAX package's
+   (:data:`SHARD_REFERENCE`). Prints each tick's phases, the plan's shard
+   sizes, the shard solves (rows, nodes, launches, ms), the tick p50 and
+   the phase-sum drift beside the scenario's gates (``p50_gate_ms``,
+   ``phase_reconcile_pct``; printed, as ``sim/cli.py`` enforces them and
+   the harness does not), the device's and the host's peak memory, and
+   the first and largest shard solves' kernel calls timed again on their
+   operands;
 9. the streaming reschedule at full width (BASELINE config #5):
    ``churn_scenario(10_000, 50_000, seed=5, load=0.7)`` with
    ``AuctionConfig(rounds=8)`` on the device engine — one converging tick,
@@ -216,18 +225,21 @@ CRASH_REFERENCE = dict(
     restarts=1,
     restored_objects=[100004],
 )
-#: ``full_500kx100k`` cut to this scale (10,000 nodes in 16 partitions,
-#: 50,000 jobs): the full shape takes tens of minutes on the CPU reference
-#: and on the card's host, past the run's time limit.
-SHARD_SCALE = 0.1
-#: The JAX package's simulator on ``full_500kx100k`` at :data:`SHARD_SCALE`
-#: with the auction pinned and every shard on the single-device auction,
-#: on the CPU, from ``JAX_PLATFORMS=cpu python tools/port_reference.py
-#: --sim full_500kx100k --scale 0.1``.
+#: Phase 8 fails if a tick of its run ends more than this many seconds
+#: after the run's harness was built (about twice what the run takes on
+#: the card's host).
+SHARD_DEADLINE_S = 480
+#: The JAX package's simulator on ``full_500kx100k`` uncut (100,000 nodes
+#: in 16 partitions, 500,000 front-loaded jobs, 3 ticks, ``ShardConfig(
+#: max_nodes_per_shard=8192, workers=2)``) with the auction pinned and
+#: every shard on the single-device auction, on the CPU, from
+#: ``JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_500kx100k``
+#: (438.3 s wall and 7,541 MiB peak RSS, 8,446 MiB with its forked pool
+#: workers' PSS, on an 8-core host).
 SHARD_REFERENCE = dict(
-    digest="b9beb7e6a1e442bb0b948998535007d5c3ffd2cb57e6794b94ef2eb862adf406",
-    final_state_digest="d750a68037aff5a807e69858cbbb4136e22641139bf27b7cece536cbab157c61",
-    bound_total=46216,
+    digest="653fe44cd3918667a6b7e6360035fc3bb65b29d343f615a23989748fe5ca3721",
+    final_state_digest="dc65c9cafdca1af0690431877aac0e0c457574b23570956d4f185b859e008f36",
+    bound_total=462742,
     reconcile_placed=0,
 )
 #: The streaming reschedule at full width: BASELINE config #5's shape and
@@ -999,14 +1011,17 @@ def pin_auction(sc):
     return sc
 
 
-def run_sim(kern, smi: str, sc, label: str, keep=()):
+def run_sim(kern, smi: str, sc, label: str, keep=(), deadline_s: float | None = None):
     """One scenario through ``SimHarness`` on the card, counting each
     tick's kernel launches and solves and noting which scheduler ran it
     (a restart builds a new one); the kernel calls of the ticks in
     ``keep`` are kept (operands and results, untimed). Prints each tick's
-    phases. Returns (result, ticks, {tick: calls}, wall seconds)."""
+    phases. With ``deadline_s``, a tick that ends more than that many
+    seconds after the harness was built fails the run. Returns (result,
+    ticks, {tick: calls}, wall seconds)."""
     from slurm_bridge_tpu_torch.sim.harness import PHASES, SimHarness
 
+    t_built = time.perf_counter()
     h = SimHarness(sc, device="cuda")
     ticks, kept = [], {}
     real = h.run_tick
@@ -1026,6 +1041,10 @@ def run_sim(kern, smi: str, sc, label: str, keep=()):
         solves = h.scheduler.solves_total - (0 if restarted else solves0)
         ticks.append(dict(launches=kern.LAUNCHES - before, solves=solves, phases=phases,
                           restarted=restarted))
+        if deadline_s is not None:
+            spent = time.perf_counter() - t_built
+            require(spent <= deadline_s,
+                    f"{label}: tick {tick} ended {spent:.1f} s in, past the {deadline_s} s deadline")
         return phases
 
     h.run_tick = counted
@@ -1138,15 +1157,18 @@ def crash_phase(kern, smi: str) -> dict:
     return dict(result=result, ticks=ticks, errs=errs, wall_s=wall_s, first=first)
 
 
-def shard_phase(kern, smi: str) -> dict:
-    """Phase 8: the sharded tick (module docstring). Returns what the
-    kernels line and the summary print."""
+def shard_phase(kern, smi: str, sm_hz: float) -> dict:
+    """Phase 8: the sharded tick at the headline's full size (module
+    docstring); ``sm_hz`` is phase 3's SM clock, for the timed solves'
+    issue ceiling. Returns what the kernels line and the summary print."""
+    import resource
+
     import slurm_bridge_tpu_torch.solver.session as session
     from slurm_bridge_tpu_torch.sim.scenarios import full_500kx100k
 
-    sc = pin_auction(full_500kx100k(scale=SHARD_SCALE))
+    sc = pin_auction(full_500kx100k(scale=1.0))
     require((sc.cluster.num_nodes, sc.cluster.num_partitions, sc.workload.jobs, sc.ticks)
-            == (10_000, 16, 50_000, 3), "full_500kx100k is not at scale 0.1")
+            == (100_000, 16, 500_000, 3), "full_500kx100k is not at full size")
     require((sc.sharding.max_nodes_per_shard, sc.sharding.workers) == (8192, 2), sc.sharding)
     solves = []
     real_solve = session.DeviceSolver.solve
@@ -1160,46 +1182,86 @@ def shard_phase(kern, smi: str) -> dict:
                            ms=(time.perf_counter() - t0) * 1e3))
         return out
 
+    torch.cuda.reset_peak_memory_stats()
     session.DeviceSolver.solve = timed_solve
     try:
-        result, ticks, kept, wall_s = run_sim(kern, smi, sc, "full_500kx100k(0.1)", keep=(0,))
+        result, ticks, kept, wall_s = run_sim(kern, smi, sc, "full_500kx100k", keep=(0,),
+                                              deadline_s=SHARD_DEADLINE_S)
     finally:
         session.DeviceSolver.solve = real_solve
-    # the main path's launches, read before the timing below adds its own
+    # the main path's launches and memory, read before the checks below
+    # launch the kernel again
     launches = kern.LAUNCHES
-    d, tm = result.determinism, result.timing
+    device_peak = torch.cuda.max_memory_allocated()
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    d, tm, fr = result.determinism, result.timing, result.flight_record
     shard = d["shard"]
+    # tick 0 solves every shard once (every partition holds front-loaded
+    # jobs): its solves' node counts are the plan's shard sizes
+    sizes = sorted((sv["nodes"] for sv in solves[:ticks[0]["launches"] // ROUNDS]), reverse=True)
+    log(f"  plan: {len(sizes)} shards of {sizes} nodes [{smi}]")
     for i, sv in enumerate(solves):
         log(f"  shard solve {i}: {sv['rows']} rows x {sv['nodes']} nodes, kernel launches "
             f"{sv['launches']}, {sv['ms']:.1f} ms [{smi}]")
+    span, phase_sum = fr.get("tick_span_p50_ms") or 0.0, fr.get("phase_sum_p50_ms") or 0.0
+    drift = abs(span - phase_sum) / span * 100.0 if span > 0 else float("nan")
     log(f"  digest {d['digest'][:16]}…, final state {d['final_state_digest'][:16]}…, "
         f"bound {d['bound_total']}, shards {shard['shard_count']}, reconcile placed "
         f"{shard['reconcile_placed']}, violations {len(d['invariant_violations'])}; tick p50 "
-        f"{tm['tick_p50_ms']:.1f} ms, phase wall {wall_s:.1f} s [{smi}]")
+        f"{tm['tick_p50_ms']:.1f} ms (the scenario's gate {sc.p50_gate_ms:.0f} ms), phase sum "
+        f"{phase_sum:.1f} ms vs tick span {span:.1f} ms p50: drift {drift:.2f} % (gate "
+        f"±{sc.phase_reconcile_pct} %); phase wall {wall_s:.1f} s; device memory peak "
+        f"{device_peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated), host peak RSS "
+        f"{host_peak / 2**20:.0f} MiB [{smi}]")
     require(d["invariant_violations"] == [], d["invariant_violations"][:3])
     require(shard["shard_count"] >= 2, f"the plan has {shard['shard_count']} shard(s)")
     for key, want in SHARD_REFERENCE.items():
         got = shard[key] if key in shard else d[key]
-        require(got == want, f"full_500kx100k(0.1) {key} {got} differs from the JAX package's {want}")
+        require(got == want, f"full_500kx100k {key} {got} differs from the JAX package's {want}")
     require(len(solves) >= 2, f"{len(solves)} shard solves")
     require(all(sv["launches"] == ROUNDS for sv in solves),
             f"shard solves launched {[sv['launches'] for sv in solves]} kernels")
     require(sum(t["launches"] for t in ticks) == ROUNDS * len(solves),
             "kernel launches outside the shard solves")
+    require(len(sizes) == shard["shard_count"] and sum(sizes) == sc.cluster.num_nodes,
+            f"tick 0 solved shards of {sizes} nodes, of a plan of {shard['shard_count']}")
     calls = kept[0]
     require(calls and len(calls) == ticks[0]["launches"] and len(calls) % ROUNDS == 0,
             f"{len(calls)} kernel calls kept on tick 0 of {ticks[0]['launches']} launches")
+    # every kernel call of tick 0 against the plain version on its own
+    # operands and live mask; then each call of the first shard solve and
+    # of the largest (the most cells its round 0 needs) timed again on
+    # those operands (after the counts were read)
     errs = []
     for j, r in enumerate(calls):
         p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
-        errs.append(compare_recorded(kern, r, f"shard tick 0 call {j} ({n},{p})"))
-    # each shard solve of tick 0 timed again call by call on its own
-    # operands (after the counts were read): per shard the kernel should
-    # scale with the cells its live rows need
-    kernel = [time_calls(kern, calls[k:k + ROUNDS], f"shard solve {k // ROUNDS} of tick 0", smi)
-              for k in range(0, len(calls), ROUNDS)]
+        errs.append(compare_recorded(
+            kern, r, f"shard solve {j // ROUNDS} of tick 0, round {j % ROUNDS} ({n},{p})"))
+    tick0 = [calls[k:k + ROUNDS] for k in range(0, len(calls), ROUNDS)]
+
+    def round0_cells(k):
+        r = tick0[k][0]
+        return needed_cells(r["args"][1].cpu().numpy(), r["args"][5].cpu().numpy(),
+                            r["live"].cpu().numpy())
+
+    held = sorted({0, max(range(len(tick0)), key=round0_cells)})
+    kernel = []
+    for k in held:
+        t = time_calls(kern, tick0[k], f"shard solve {k} of tick 0", smi)
+        r0 = tick0[k][0]
+        p, n = r0["args"][4].shape[0], r0["kw"]["num_nodes"]
+        # each call's operands and live mask read, its outputs written
+        nbytes = sum(a.numel() * a.element_size() for a in r0["args"]) + 9 * p
+        t["bound_ms"], t["bound_by"], t["ceiling_ms"] = bounds(kern, t["cells"], ROUNDS * nbytes,
+                                                               sm_hz)
+        log(f"  shard solve {k} of tick 0 ({n},{p}): kernel {t['ms_per_solve']:.4f} ms per solve, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), issue ceiling {t['ceiling_ms']:.4f} ms "
+            f"[{smi}]")
+        kernel.append(t)
     return dict(result=result, ticks=ticks, solves=solves, errs=errs, wall_s=wall_s,
-                kernel=kernel, launches=launches)
+                kernel=kernel, held=held, launches=launches, sizes=sizes,
+                device_peak=device_peak, host_peak=host_peak, drift=drift,
+                p50_gate_ms=sc.p50_gate_ms, drift_gate=sc.phase_reconcile_pct)
 
 
 def churn_phase(kern, smi: str) -> dict:
@@ -1938,10 +2000,10 @@ def main() -> int:
     errs += crash["errs"]
 
     # 8. the sharded tick: every shard's solve on the kernel
-    log(f"[8] main path: the simulator's full_500kx100k at scale {SHARD_SCALE} with the shard "
-        "executor's fan-out")
+    log("[8] main path: the simulator's full_500kx100k uncut (100,000 nodes, 500,000 jobs, "
+        "3 ticks) with the shard executor's fan-out")
     kern.LAUNCHES = 0
-    shard = shard_phase(kern, smi)
+    shard = shard_phase(kern, smi, sm_mhz * 1e6)
     shard_launches = shard["launches"]
     require(shard_launches > 0, "no kernel launch in the sharded phase")
     errs += shard["errs"]
@@ -2010,14 +2072,20 @@ def main() -> int:
             + f"; {t['launches']} kernel launches")
     for label, run, launches in (("full_50kx10k", sim, sim_launches),
                                  ("full_50kx10k_crash", crash, crash_launches),
-                                 (f"full_500kx100k({SHARD_SCALE})", shard, shard_launches)):
+                                 ("full_500kx100k", shard, shard_launches)):
         tm = run["result"].timing
         log(f"[14] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
             + f" (p50 over {len(run['ticks'])} ticks); {launches} kernel launches; "
             f"phase wall {run['wall_s']:.1f} s")
-    log(f"[14] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; shard solves "
-        f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms")
+    log(f"[14] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; full_500kx100k: "
+        f"{len(shard['sizes'])} shards of {shard['sizes']} nodes, shard solves "
+        f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms, kernel per solve of tick 0's shard "
+        f"solves {shard['held']}: {[round(k['ms_per_solve'], 4) for k in shard['kernel']]} ms; "
+        f"tick p50 {shard['result'].timing['tick_p50_ms']:.1f} ms (gate {shard['p50_gate_ms']:.0f}), "
+        f"phase-sum drift {shard['drift']:.2f} % (gate ±{shard['drift_gate']} %); device memory "
+        f"peak {shard['device_peak'] / 2**20:.1f} MiB, host peak RSS "
+        f"{shard['host_peak'] / 2**20:.0f} MiB")
     log(f"[14] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
         f"re-solve ms {[round(t['solve_ms'], 1) for t in churn['ticks']]}, "
         f"{churn_launches} kernel launches, kernel {churn['kernel']['ms_per_solve']:.4f} ms per "
@@ -2058,6 +2126,9 @@ def main() -> int:
         + [t["launches"] for t in sim["ticks"]] + [t["launches"] for t in crash["ticks"]]
         + [t["launches"] for t in shard["ticks"]],
         "launches_per_shard_solve": [sv["launches"] for sv in shard["solves"]],
+        "shard_solves_timed": shard["held"],
+        "shard_kernel_ms_per_solve": [k["ms_per_solve"] for k in shard["kernel"]],
+        "shard_bound_ms_per_solve": [k["bound_ms"] for k in shard["kernel"]],
         "launches_per_churn_tick": [t["launches"] for t in churn["ticks"]]
         + [churn["auto_launches"]],
         "launches_per_place": [t["launches"] for t in sidecar["places"]],

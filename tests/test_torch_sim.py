@@ -150,6 +150,52 @@ def test_digests_equal_the_jax_package(name, scale, pin):
     assert _virtual(port.quality) == _virtual(ref.quality)
 
 
+#: (scenario, scale, pin the auction, what the JAX package's run gave):
+#: its native-routed headlines (auto routing on the CPU sends every solve
+#: to the native packer) and chip_smoke.py's phase [8] configuration at
+#: scale 0.1, which the card ran before it ran the scenario uncut. Each
+#: takes minutes on the CPU. Where each pin comes from is beside it.
+HEADLINE_PINS = [
+    # diagnostics/sim_full_50kx10k_r08.json (BASELINE.md, PR-4)
+    ("full_50kx10k", 1.0, False, dict(
+        digest="392a9fedf3a3b713dfbccdcf9c8f06f2f320485670d4ff1ddfc511f3f311d12c",
+        bound_total=45_561)),
+    # BASELINE.md's full_500kx100k pin (sharding on, 16 shards)
+    ("full_500kx100k", 1.0, False, dict(
+        final_state_digest="75110f56e42e5a05d89ac7e68b8a1bd0587ccab6b4af0a8aae7f5e002b9bf800",
+        bound_total=457_006)),
+    # JAX_PLATFORMS=cpu python -m slurm_bridge_tpu.sim full_1mx200k
+    # (BASELINE.md keeps 02ba68b5… and 912,884 bound)
+    ("full_1mx200k", 1.0, False, dict(
+        final_state_digest="02ba68b584d47b00667a617e7f18fe246e7b70a2bd5825cfd41792068758bbfe",
+        bound_total=912_884)),
+    # JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_500kx100k
+    # --scale 0.1
+    ("full_500kx100k", 0.1, True, dict(
+        digest="b9beb7e6a1e442bb0b948998535007d5c3ffd2cb57e6794b94ef2eb862adf406",
+        final_state_digest="d750a68037aff5a807e69858cbbb4136e22641139bf27b7cece536cbab157c61",
+        bound_total=46_216)),
+]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize(
+    "name,scale,pin,want", HEADLINE_PINS,
+    ids=[f"{n}-{s}{'-auction' if p else ''}" for n, s, p, _ in HEADLINE_PINS],
+)
+def test_headline_equals_the_jax_packages_pinned_digest(monkeypatch, name, scale, pin, want):
+    """The port on the host backend (``SBT_BACKEND=cpu``, no device asked
+    for: the scenario's own routing) gives the digests the JAX package
+    pinned for the same run."""
+    monkeypatch.setenv("SBT_BACKEND", "cpu")
+    sc = port_scenarios.SCENARIOS[name](scale=scale)
+    if pin:
+        sc = _single_device_shards(_pinned_auction(sc, port_auction))
+    d = port_sim.run_scenario(sc).determinism
+    assert d["invariant_violations"] == []
+    assert {k: d[k] for k in want} == want
+
+
 def _virtual(quality: dict) -> dict:
     """The scorecard without wall-clock latencies and without the fleet's
     transport counters (remote solves against inline fallbacks follow the

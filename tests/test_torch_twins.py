@@ -44,9 +44,17 @@ def load_twin(stem: str, *, rewrites=(), drop=(), eight_devices: bool = False) -
     mod = types.ModuleType(f"port_twin_of_{stem}")
     mod.__file__ = str(TESTS / f"{stem}.py")
     # registered first: a dataclass defined in the file looks its module
-    # up in sys.modules while the class is built
+    # up in sys.modules while the class is built. A second load (the
+    # registry test below) hands the name back to the first: the twin's
+    # classes resolve their string annotations through it (typing's
+    # get_type_hints), and must keep finding their own siblings
+    prior = sys.modules.get(mod.__name__)
     sys.modules[mod.__name__] = mod
-    exec(compile(src, f"<port twin of tests/{stem}.py>", "exec"), mod.__dict__)
+    try:
+        exec(compile(src, f"<port twin of tests/{stem}.py>", "exec"), mod.__dict__)
+    finally:
+        if prior is not None:
+            sys.modules[mod.__name__] = prior
     ns = {k: v for k, v in vars(mod).items() if not k.startswith("__")}
     for name in drop:
         assert name in ns, f"{stem}: dropped test {name!r} no longer exists"
@@ -128,7 +136,8 @@ def _tests_in(ns: dict) -> set[str]:
     "test_admission", "test_policy", "test_colstore", "test_agent",
     "test_bridge", "test_client", "test_races", "test_resilience",
     "test_kubeapi", "test_vkhttp", "test_demo", "test_utils", "test_obs",
-    "test_flight", "test_distributed",
+    "test_flight", "test_distributed", "test_solver", "test_session",
+    "test_ops", "test_store_snapshots",
 ])
 def test_twin_runs_every_reference_test_it_does_not_drop(stem):
     """Each twin file carries every test of its reference file except the

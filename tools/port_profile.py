@@ -28,8 +28,8 @@ on ``full_50kx10k`` at full width (3 ticks, ``backend="auction"``,
 rounds=8), after a warm-up run at 5 % scale; it also prints each tick's
 phase times and the run's digest. ``--sim NAME --scale S`` profiles
 another scenario pinned the same way (chip_smoke.py's ``pin_auction``):
-``full_50kx10k_crash`` or ``full_500kx100k --scale 0.1``, chip_smoke.py's
-phases 7 and 8.
+``full_50kx10k_crash`` or ``full_500kx100k``, chip_smoke.py's phases 7
+and 8.
 ``--root`` profiles the port package of another checkout (for example
 an unpacked earlier commit), so two trees compare in one call.
 """

@@ -22,9 +22,9 @@ and prints its determinism ``digest``, ``final_state_digest``,
 ``bound_total``, invariant violations and its tick p50 and phases. A
 crash scenario adds its restarts, the objects each restart restored, its
 recovery times and WAL counts; a sharded scenario runs every shard on
-the single-device auction (``ShardConfig(device_solve=False)``: the port
-carries no multi-device sweep, and the JAX package would take its
-``shard_map`` route on a host with several devices) and adds the plan's
+the single-device auction (``ShardConfig(device_solve=False)``: the JAX
+package would take its ``shard_map`` route on a host with several
+devices, and the port on its one card would not) and adds the plan's
 shard count and the cross-shard reconcile count.
 
 ``--churn``: runs the JAX package's streaming reschedule at
@@ -76,7 +76,7 @@ and sweep runs on the card to these numbers.
     JAX_PLATFORMS=cpu python tools/port_reference.py --tick --nodes 10000 --jobs 50000
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k_crash
-    JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_500kx100k --scale 0.1
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_500kx100k
     JAX_PLATFORMS=cpu python tools/port_reference.py --churn
     JAX_PLATFORMS=cpu python tools/port_reference.py --place --nodes 10000 --jobs 50000
     JAX_PLATFORMS=cpu python tools/port_reference.py --bridge
