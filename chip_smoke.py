@@ -2,7 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port: the placement solve, the
 placement tick, the bridge's job lifecycle on the simulated cluster, its
 recovery from a crash, the sharded tick, the streaming reschedule, the
-placement-solver sidecar, the bridge's daemons and the multi-device sweep.
+placement-solver sidecar, the bridge's daemons, the multi-device sweep and
+the BASELINE configs #2 and #4 and the sampled auction path.
 
     python3 chip_smoke.py
 
@@ -19,8 +20,10 @@ which fails the run:
    shapes, a tie across a tile boundary, one round's operands of the
    57,635 × 10,000 headline solve, and every round of one instrumented
    headline solve with that round's live mask (the rows still unplaced) —
-   bit-exact at ``affinity_weight=0``; at 0.3, ≥ 99.9 % equal choices and
-   values within atol 1e-5. Per round it prints the live rows, the cells
+   values and choices bit-exact at every ``affinity_weight`` (0, 0.3, and
+   0.05 at jitter 0.7: the kernel rounds the affinity bid as its plain
+   version and the JAX package's dense round do). Per round it prints the
+   live rows, the cells
    they need (each live row's partition's node count) and the kernel's
    device time in the solve (CUDA events around the wrapper's call, behind
    a gate so the host's launch rate is not timed); then the time per launch
@@ -158,9 +161,29 @@ which fails the run:
     (``hybrid_solver_mesh``) — 16 launches per solve each, both ranks'
     ``node_of`` equal to (a)'s; a rank that fails, hangs past
     :data:`SWEEP_RANK_DEADLINE_S` or exits nonzero fails the run;
-13. hold the card against the JAX package's result on a reduced scenario
+13. the BASELINE configs the earlier phases do not solve
+    (``benchmarks/scenarios/__init__.py``): (a) config #4, gang MPI jobsets
+    on a fragmented cluster (:data:`BASELINE4`: 54,056 shards × 10,000
+    nodes) with its own solve (:data:`BASELINE4_SOLVE`: 16 rounds, 8
+    salvage rounds, gang-first, affinity 0.05) on ``DeviceSolver``, the
+    kernel auto-selected — 1 + 5 solves, 16 launches each, identical and
+    feasible, ``node_of`` digest, placed jobs and shards equal to the JAX
+    package's (:data:`BASELINE4_REFERENCE`), each of the 16 kernel calls
+    of the first held bit-exact against the plain version on its own
+    operands and live mask; prints the auto route (``choose_path``: native,
+    gang-dominated), each round's live rows, needed cells and kernel ms,
+    an all-live launch beside its bounds and the plain version, the solve
+    p50, the device memory peak and the native packer's placed jobs;
+    (b) config #2 (:data:`BASELINE2`, 5,000 pods on 512 nodes, 8 rounds)
+    the same way (:data:`BASELINE2_REFERENCE`), its solve p50 beside the
+    native packer's; (c) the sampled auction path
+    (``candidates=``:data:`SAMPLED_K`) on the headline (8 rounds) and on
+    config #4: 6 solves each, no kernel launch, ``node_of`` equal to the
+    JAX package's (:data:`SAMPLED_REFERENCE`); prints solve p50 and device
+    memory peak;
+14. hold the card against the JAX package's result on a reduced scenario
     (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
-14. print times with the card's name and power limit, and the run's wall
+15. print times with the card's name and power limit, and the run's wall
     time.
 
 The second-to-last lines are the kernels' JSON record and the
@@ -320,6 +343,41 @@ SHARDED_REFERENCE = dict(
 )
 #: How long phase [12] waits for its two ranks, start to exit.
 SWEEP_RANK_DEADLINE_S = 300
+#: BASELINE config #4 (``benchmarks/scenarios/__init__.py`` ``scenario_4``):
+#: gang MPI jobsets on a fragmented cluster, 54,056 shards (89 % of them in
+#: 8-shard gangs) × 10,000 nodes, and its solve — the one BASELINE config
+#: with a best-fit affinity, a 16-round auction, 8 salvage rounds and the
+#: gang-first boost. Config #2 (``scenario_2``): 5,000 pods on 512 nodes.
+BASELINE4 = dict(num_nodes=10_000, num_jobs=12_000, seed=4, load=0.8, gang_fraction=0.5,
+                 gang_size=8)
+BASELINE4_SOLVE = dict(rounds=16, gang_salvage_rounds=8, gang_first=True, affinity_weight=0.05)
+BASELINE2 = dict(num_nodes=512, num_jobs=5_000, seed=2, load=0.7)
+BASELINE2_SOLVE = dict(rounds=8)
+#: The sampled auction path's candidates per shard in phase [13].
+SAMPLED_K = 64
+#: The JAX package's dense solves of configs #4 and #2 on the CPU with
+#: their own solve configs, from ``JAX_PLATFORMS=cpu python
+#: tools/port_reference.py --baseline 4`` (32.3 s wall, 5,121 MiB peak RSS
+#: on an 8-core host) and ``--baseline 2``.
+BASELINE4_REFERENCE = dict(
+    shards=54_056,
+    dense=dict(node_of_sha256="63f4661bfa14279007903052a5ef03b3303e396316fdf2154e4ece7a1c4cbca5",
+               placed_jobs=11_894, placed_shards=53_950),
+)
+BASELINE2_REFERENCE = dict(
+    node_of_sha256="f5e33a22010e9d186418cbf57a6986d07149101c4f8d87366f4288f887d8eb87",
+    placed_jobs=5_000, placed_shards=5_000,
+)
+#: The JAX package's sampled solves (``candidates=64``) of the headline
+#: (``rounds=8``) and of config #4 (its own config) on the CPU, from
+#: ``tools/port_reference.py --nodes 10000 --jobs 50000 --candidates 64``
+#: and ``--baseline 4 --candidates 64``.
+SAMPLED_REFERENCE = dict(
+    headline=dict(node_of_sha256="3a4a7d874fc686a971f57edbe92643c29655bd649ddb5e13ae729fbafb1f6a00",
+                  placed_jobs=45_531, placed_shards=52_332),
+    config4=dict(node_of_sha256="49f5251a8dfd4150277b7911e1516aab0b88eb06a456d82a0c12a64af3f20084",
+                 placed_jobs=11_641, placed_shards=53_697),
+)
 #: What the JAX package's default (native-routed on the CPU) run of
 #: ``full_50kx10k`` binds over its 3 ticks: printed beside the port's
 #: auto-routed tick for reading, not compared.
@@ -784,10 +842,12 @@ def small_operands(seed, n, p, device):
 def compare(kern, args, salt, aw, n, label, live=None, got=None, jitter=1.0,
             p_base=0, n_base=0, **plain_kw):
     """Kernel vs plain on the same operands; returns the max |Δ| over
-    finite values. Bit-exact at aw=0; the stated tolerance at aw≠0.
-    ``got`` is the kernel's (values, choices) from a launch already made
-    on these operands; without it the kernel is launched here.
-    ``p_base``/``n_base`` are a sweep block's global offsets."""
+    finite values, which must be 0: values and choices bit-exact at every
+    ``affinity_weight`` and ``jitter`` (both round the bid alike, the
+    affinity's fused steps included). ``got`` is the kernel's (values,
+    choices) from a launch already made on these operands; without it the
+    kernel is launched here. ``p_base``/``n_base`` are a sweep block's
+    global offsets."""
     kw = dict(jitter=jitter, affinity_weight=aw, num_nodes=n, live=live)
     bv, bi = got if got is not None else kern.bid_argmax(*args, salt, p_base, n_base, **kw)
     torch.cuda.synchronize()
@@ -798,10 +858,7 @@ def compare(kern, args, salt, aw, n, label, live=None, got=None, jitter=1.0,
     err = (bv[fin] - pv[fin]).abs().max().item() if fin.any() else 0.0
     exact = torch.equal(bi, pi) and torch.equal(bv.view(torch.int32), pv.view(torch.int32))
     log(f"  {label} aw={aw}: choices equal {same_idx:.6f}, max|dv| {err:.3g}, bit-exact {exact}")
-    if aw == 0.0:
-        require(exact, f"{label}: kernel and plain differ at affinity_weight=0")
-    else:
-        require(same_idx >= 0.999 and err <= 1e-5, f"{label}: outside tolerance")
+    require(exact, f"{label}: kernel and plain differ at affinity_weight={aw}, jitter={jitter}")
     return err
 
 
@@ -816,13 +873,15 @@ def needed_cells(node_part: np.ndarray, job_part: np.ndarray, live: np.ndarray) 
     return int(per_row.sum())
 
 
-def bounds(kern, cells: int, nbytes: int, sm_hz: float):
+def bounds(kern, cells: int, nbytes: int, sm_hz: float, affinity: bool = False):
     """(roofline ms, what bounds it, per-pipe issue ceiling ms) for
-    ``cells`` needed cells and ``nbytes`` of operands."""
-    ops = kern.OPS_PER_CELL * cells
+    ``cells`` needed cells and ``nbytes`` of operands, at the cell loop's
+    instruction counts without the affinity term or (``affinity``) with
+    it."""
+    c = kern.CELL_OPS_AFF if affinity else kern.CELL_OPS
+    ops = (c["int"] + c["f32"] + c["cvt"]) * cells
     roof_s = max(nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S)
     bound_by = "operations" if ops / ALU_OPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes"
-    c = kern.CELL_OPS
     clocks_per_cell = max(
         max(c[k] / LANES_PER_CLOCK[k] for k in LANES_PER_CLOCK),
         sum(c.values()) / ISSUE_LANES_PER_CLOCK,
@@ -1811,6 +1870,168 @@ def sweep_phase(kern, smi: str, snap, batch, single_shards: int, sm_hz: float,
                 cells=sum(cells), tick=tick, ranks=ranks)
 
 
+def native_p50(snap, batch, reps: int = 5) -> tuple[float, object]:
+    """The host packer's wall p50 over ``reps`` runs, and its placement."""
+    from slurm_bridge_tpu_torch.solver.indexed_native import indexed_place_native
+
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pl = indexed_place_native(snap, batch)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), pl
+
+
+def baseline_phase(kern, smi: str, hsnap, hbatch, sm_hz: float) -> dict:
+    """Phase [13]: BASELINE configs #4 and #2 on the device solve, and the
+    sampled auction path on the headline (``hsnap``, ``hbatch``) and on
+    config #4 (module docstring). Returns what the kernels line and the
+    summary print."""
+    from slurm_bridge_tpu_torch.solver import AuctionConfig, DeviceSolver
+    from slurm_bridge_tpu_torch.solver.routing import choose_path, gang_shard_fraction
+    from slurm_bridge_tpu_torch.solver.snapshot import random_scenario
+
+    out = {}
+
+    def held(name, snap, batch, cfg, ref, want_launches):
+        """Solve ``snap``/``batch`` on a fresh session: 1 + 5 solves, each
+        launching the kernel ``want_launches`` times, identical, feasible,
+        equal to the JAX package's ``ref``; each kernel call of the first
+        (its operands kept and timed) held bit-exact against the plain
+        version on its own operands."""
+        route = choose_path(batch.num_shards, snap.num_nodes, backend_name="cuda",
+                            gang_fraction=gang_shard_fraction(batch.gang_id))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        solver = DeviceSolver(snap, cfg)
+        with kernel_events(keep_operands=True) as calls:
+            before = kern.LAUNCHES
+            pl = solver.solve(batch)
+        launches, walls = [kern.LAUNCHES - before], []
+        for _ in range(5):
+            before = kern.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = solver.solve(batch)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches.append(kern.LAUNCHES - before)
+            np.testing.assert_array_equal(again.node_of, pl.node_of)
+        peak = torch.cuda.max_memory_allocated()
+        require(launches == [want_launches] * len(launches) and len(calls) == want_launches,
+                f"{name}: {launches} kernel launches per solve, {len(calls)} calls kept "
+                f"({want_launches} wanted)")
+        check_feasible(snap, batch, pl)
+        got = dict(node_of_sha256=digest(pl.node_of), placed_jobs=len(pl.by_job(batch)),
+                   placed_shards=int(pl.placed.sum()))
+        require(got == ref, f"{name}: {got} differs from the JAX package's {ref}")
+        errs, cells = [], []
+        node_part = snap.partition_of
+        for j, r in enumerate(calls):
+            live = r["live"].cpu().numpy()
+            cells.append(needed_cells(node_part, batch.partition_of, live))
+            errs.append(compare_recorded(kern, r, f"{name} round {j}"))
+            log(f"    {name} round {j}: live rows {int(live.sum())}, needed cells {cells[-1]}, "
+                f"kernel {r['ms']:.4f} ms in the solve [{smi}]")
+        p50 = statistics.median(walls)
+        log(f"  {name}: {batch.num_shards} shards x {snap.num_nodes} nodes, auto route {route}; "
+            f"{1 + len(walls)} solves identical and feasible, {len(calls)} launches each; placed "
+            f"jobs {got['placed_jobs']} ({got['placed_shards']} shards); node_of digest equals "
+            f"the JAX package's ({got['node_of_sha256'][:16]}…); solve p50 {p50:.1f} ms "
+            f"(min {min(walls):.1f}, max {max(walls):.1f}); device memory peak "
+            f"{peak / 2**20:.1f} MiB [{smi}]")
+        return dict(route=route, walls=walls, p50_ms=p50, calls=calls, errs=errs, cells=cells,
+                    peak=peak, launches_per_solve=want_launches, launches=sum(launches), **got)
+
+    # (a) config #4: gang MPI jobsets, 16 rounds, affinity 0.05
+    snap4, batch4 = random_scenario(**BASELINE4)
+    require(batch4.num_shards == BASELINE4_REFERENCE["shards"], batch4.num_shards)
+    cfg4 = AuctionConfig(**BASELINE4_SOLVE, candidates=0)
+    log(f"  (a) BASELINE config #4: {cfg4}")
+    c4 = held("config #4", snap4, batch4, cfg4, BASELINE4_REFERENCE["dense"],
+              BASELINE4_SOLVE["rounds"])
+    ms_per_solve = sum(r["ms"] for r in c4["calls"])
+    r0 = c4["calls"][0]
+    kw0 = dict(r0["kw"], live=None)
+    launch_ms = cuda_ms(lambda: kern.bid_argmax(*r0["args"], r0["salt"], **kw0), 20)
+    pk = {k: r0["kw"][k] for k in ("jitter", "affinity_weight", "num_nodes")}
+    pk.update(bp=4096, bn=2048)
+    kern.bid_argmax_plain(*r0["args"], r0["salt"], **pk)
+    plain_ms = cuda_ms(lambda: kern.bid_argmax_plain(*r0["args"], r0["salt"], **pk), 1,
+                       gate=False)
+    p4, n4 = batch4.num_shards, snap4.num_nodes
+    nbytes = sum(a.numel() * a.element_size() for a in r0["args"]) + 9 * p4
+    launch_cells = needed_cells(snap4.partition_of, batch4.partition_of, np.ones(p4, bool))
+    launch_bound, launch_bound_by, launch_ceiling = bounds(kern, launch_cells, nbytes, sm_hz,
+                                                           affinity=True)
+    solve_bound, _, solve_ceiling = bounds(kern, sum(c4["cells"]), len(c4["calls"]) * nbytes,
+                                           sm_hz, affinity=True)
+    native_ms, native = native_p50(snap4, batch4)
+    native_jobs = len(native.by_job(batch4))
+    log(f"  (a) kernel with affinity: all {p4} rows live {launch_ms:.4f} ms/launch, plain "
+        f"{plain_ms:.1f} ms; {launch_cells} needed cells, bound {launch_bound:.4f} ms "
+        f"({launch_bound_by}), issue ceiling {launch_ceiling:.4f} ms; per solve {ms_per_solve:.4f} "
+        f"ms over {len(c4['calls'])} launches, {sum(c4['cells'])} needed cells, bound "
+        f"{solve_bound:.4f} ms, issue ceiling {solve_ceiling:.4f} ms; placed jobs "
+        f"{c4['placed_jobs']} vs the native packer's {native_jobs} of {BASELINE4['num_jobs']} "
+        f"(native p50 {native_ms:.1f} ms) [{smi}]")
+    c4.update(ms_per_solve=ms_per_solve, launch_ms=launch_ms, plain_ms=plain_ms,
+              launch_cells=launch_cells, launch_bound=launch_bound,
+              launch_bound_by=launch_bound_by, launch_ceiling=launch_ceiling,
+              solve_bound=solve_bound, solve_ceiling=solve_ceiling, native_ms=native_ms,
+              native_jobs=native_jobs)
+    out["config4"] = c4
+
+    # (b) config #2: 5,000 pods on 512 nodes, 8 rounds
+    snap2, batch2 = random_scenario(**BASELINE2)
+    cfg2 = AuctionConfig(**BASELINE2_SOLVE, candidates=0)
+    log(f"  (b) BASELINE config #2: {cfg2}")
+    c2 = held("config #2", snap2, batch2, cfg2, BASELINE2_REFERENCE, BASELINE2_SOLVE["rounds"])
+    c2["ms_per_solve"] = sum(r["ms"] for r in c2["calls"])
+    c2["native_ms"], native2 = native_p50(snap2, batch2)
+    log(f"  (b) solve p50 {c2['p50_ms']:.1f} ms beside the native packer's "
+        f"{c2['native_ms']:.1f} ms ({len(native2.by_job(batch2))} jobs placed); kernel "
+        f"{c2['ms_per_solve']:.4f} ms per solve [{smi}]")
+    out["config2"] = c2
+
+    # (c) the sampled path (K candidates per shard): no kernel launch
+    for key, label, snap, batch, solve in (
+        ("headline", "the headline", hsnap, hbatch, dict(rounds=ROUNDS)),
+        ("config4", "config #4", snap4, batch4, BASELINE4_SOLVE),
+    ):
+        cfg = AuctionConfig(**solve, candidates=SAMPLED_K)
+        before = kern.LAUNCHES
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        solver = DeviceSolver(snap, cfg)
+        first = solver.solve(batch)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pl = solver.solve(batch)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            np.testing.assert_array_equal(pl.node_of, first.node_of)
+        peak = torch.cuda.max_memory_allocated()
+        launches = kern.LAUNCHES - before
+        require(launches == 0, f"sampled {label}: {launches} kernel launches")
+        check_feasible(snap, batch, first)
+        got = dict(node_of_sha256=digest(first.node_of), placed_jobs=len(first.by_job(batch)),
+                   placed_shards=int(first.placed.sum()))
+        ref = SAMPLED_REFERENCE[key]
+        require(got == ref, f"sampled {label}: {got} differs from the JAX package's {ref}")
+        p50 = statistics.median(walls)
+        log(f"  (c) sampled K={SAMPLED_K} on {label} ({batch.num_shards} x {snap.num_nodes}, "
+            f"{cfg.rounds} rounds): 6 solves identical and feasible, 0 kernel launches; placed "
+            f"jobs {got['placed_jobs']} ({got['placed_shards']} shards); node_of digest equals "
+            f"the JAX package's ({got['node_of_sha256'][:16]}…); solve p50 {p50:.1f} ms (min "
+            f"{min(walls):.1f}, max {max(walls):.1f}); device memory peak {peak / 2**20:.1f} "
+            f"MiB [{smi}]")
+        out[f"sampled_{key}"] = dict(walls=walls, p50_ms=p50, peak=peak, **got)
+    out["errs"] = c4["errs"] + c2["errs"]
+    # the path's own launches: the solves', not the timing's or the compares'
+    out["launches"] = c4["launches"] + c2["launches"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1845,8 +2066,9 @@ def main() -> int:
     errs = []
     for n, p in ((700, 300), (33, 1000), (1, 1)):
         args = small_operands(n * 1000 + p, n, p, dev)
-        for aw in (0.0, 0.3):
-            errs.append(compare(kern, args, 7, aw, n, f"({n},{p})"))
+        for aw, jitter in ((0.0, 1.0), (0.3, 1.0), (0.05, 0.7)):
+            errs.append(compare(kern, args, 7, aw, n, f"({n},{p}) jitter={jitter}",
+                                jitter=jitter))
     tie = small_operands(1, 600, 260, dev)
     tie[0][:] = 100.0
     tie[0][:127] = 0.0
@@ -1864,8 +2086,9 @@ def main() -> int:
     p_h, n_h = batch.num_shards, snap.num_nodes
     require((p_h, n_h) == (57_635, 10_000), (p_h, n_h))
     hargs = round_operands(snap, batch, dev)
-    for aw in (0.0, 0.3):
-        errs.append(compare(kern, hargs, 3, aw, n_h, f"headline ({n_h},{p_h})", bp=4096, bn=2048))
+    for aw, jitter in ((0.0, 1.0), (0.3, 1.0), (0.05, 0.7)):
+        errs.append(compare(kern, hargs, 3, aw, n_h, f"headline ({n_h},{p_h}) jitter={jitter}",
+                            jitter=jitter, bp=4096, bn=2048))
 
     # every round of one headline solve, with that round's live mask
     node_part_np, job_part_np = snap.partition_of, batch.partition_of
@@ -2045,7 +2268,18 @@ def main() -> int:
             f"{sweep_launches} kernel launches in the sweep phase")
     errs += sweep["errs"]
 
-    # 13. the JAX package's result on the reduced scenario
+    # 13. BASELINE configs #4 and #2, and the sampled path
+    log(f"[13] main path: BASELINE config #4 (gang MPI jobsets, {BASELINE4_SOLVE['rounds']} "
+        f"rounds, affinity {BASELINE4_SOLVE['affinity_weight']}) and #2 on DeviceSolver, and the "
+        f"sampled auction path (K={SAMPLED_K}) on the headline and on config #4")
+    kern.LAUNCHES = 0
+    base = baseline_phase(kern, smi, snap, batch, sm_mhz * 1e6)
+    baseline_launches = base["launches"]
+    require(baseline_launches == 6 * (BASELINE4_SOLVE["rounds"] + BASELINE2_SOLVE["rounds"]),
+            f"{baseline_launches} kernel launches in the BASELINE phase's solves")
+    errs += base["errs"]
+
+    # 14. the JAX package's result on the reduced scenario
     ref_snap, ref_batch = random_scenario(
         REFERENCE["nodes"], REFERENCE["jobs"], seed=42, load=0.7,
         gpu_fraction=0.15, gang_fraction=0.05,
@@ -2056,29 +2290,29 @@ def main() -> int:
     ref_jobs = len(ref_pl.by_job(ref_batch))
     rel = abs(ref_jobs - REFERENCE["placed_jobs"]) / REFERENCE["placed_jobs"]
     match = digest(ref_pl.node_of) == REFERENCE["node_of_sha256"]
-    log(f"[13] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
+    log(f"[14] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
         f"vs JAX {REFERENCE['placed_jobs']} (rel {rel:.5f}); node_of digest matches JAX: {match}")
     require(rel <= 0.005, rel)
 
-    # 14. times
+    # 15. times
     p50 = statistics.median(wall_ms)
-    log(f"[14] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
+    log(f"[15] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
         f"(min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); kernel {kernel_ms:.4f} ms/launch "
         f"(bound {bound_ms:.4f}, ceiling {ceiling_ms:.4f}), {ms_per_solve:.4f} ms per solve; "
         f"total run {time.perf_counter() - t_start:.0f} s")
     for i, t in enumerate(tick["ticks"]):
-        log(f"[14] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
+        log(f"[15] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in t["phase_ms"].items())
             + f"; {t['launches']} kernel launches")
     for label, run, launches in (("full_50kx10k", sim, sim_launches),
                                  ("full_50kx10k_crash", crash, crash_launches),
                                  ("full_500kx100k", shard, shard_launches)):
         tm = run["result"].timing
-        log(f"[14] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
+        log(f"[15] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
             + f" (p50 over {len(run['ticks'])} ticks); {launches} kernel launches; "
             f"phase wall {run['wall_s']:.1f} s")
-    log(f"[14] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; full_500kx100k: "
+    log(f"[15] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; full_500kx100k: "
         f"{len(shard['sizes'])} shards of {shard['sizes']} nodes, shard solves "
         f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms, kernel per solve of tick 0's shard "
         f"solves {shard['held']}: {[round(k['ms_per_solve'], 4) for k in shard['kernel']]} ms; "
@@ -2086,27 +2320,36 @@ def main() -> int:
         f"phase-sum drift {shard['drift']:.2f} % (gate ±{shard['drift_gate']} %); device memory "
         f"peak {shard['device_peak'] / 2**20:.1f} MiB, host peak RSS "
         f"{shard['host_peak'] / 2**20:.0f} MiB")
-    log(f"[14] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
+    log(f"[15] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
         f"re-solve ms {[round(t['solve_ms'], 1) for t in churn['ticks']]}, "
         f"{churn_launches} kernel launches, kernel {churn['kernel']['ms_per_solve']:.4f} ms per "
         f"solve on churn tick 1; auto route {churn['auto_route']}")
-    log(f"[14] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
+    log(f"[15] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
         f"(solve {[round(t['solve_ms'], 1) for t in sidecar['places']]}), "
         f"{sidecar_launches} kernel launches, kernel {sidecar['kernel']['ms_per_solve']:.4f} ms "
         f"per solve on Place 0")
     tk = daemons["tick"]
-    log(f"[14] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
+    log(f"[15] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
         + ", ".join(f"{k} {v:.1f} ms" for k, v in tk["phase_ms"].items())
         + f"), kernel {daemons['kernel']['ms_per_solve']:.4f} ms over {ROUNDS} launches; "
         f"{BRIDGE['num_jobs']} jobs submit to last Succeeded {daemons['wall_s']:.1f} s; "
         f"{daemons_launches} kernel launches")
-    log(f"[14] [{smi}] multi-device sweep ({SWEEP['dp']}x{SWEEP['mp']} cuda:0 blocks): solve "
+    log(f"[15] [{smi}] multi-device sweep ({SWEEP['dp']}x{SWEEP['mp']} cuda:0 blocks): solve "
         f"wall {[round(w, 1) for w in sweep['walls']]} ms, kernel {sweep['ms_per_solve']:.4f} ms "
         f"per solve over {sweep['solve_launches'][0]} block launches, combine and gathers "
         f"{sum(sweep['combine_ms']):.4f} ms per solve; forced-sharded tick "
         f"{sweep['tick']['wall_ms']:.1f} ms; gloo ranks' solve wall "
         f"{[[round(sv['wall_ms'], 1) for sv in rk['solves']] for rk in sweep['ranks']]} ms; "
-        f"{sweep_launches} kernel launches; total run {time.perf_counter() - t_start:.1f} s")
+        f"{sweep_launches} kernel launches")
+    c4, c2 = base["config4"], base["config2"]
+    log(f"[15] [{smi}] BASELINE config #4: solve p50 {c4['p50_ms']:.1f} ms, kernel "
+        f"{c4['ms_per_solve']:.4f} ms per solve over {c4['launches_per_solve']} launches "
+        f"(bound {c4['solve_bound']:.4f}, ceiling {c4['solve_ceiling']:.4f}), "
+        f"{c4['launch_ms']:.4f} ms all-live launch, device memory peak {c4['peak'] / 2**20:.1f} "
+        f"MiB; config #2: solve p50 {c2['p50_ms']:.1f} ms (native {c2['native_ms']:.1f} ms); "
+        f"sampled K={SAMPLED_K}: headline p50 {base['sampled_headline']['p50_ms']:.1f} ms, "
+        f"config #4 p50 {base['sampled_config4']['p50_ms']:.1f} ms; {baseline_launches} kernel "
+        f"launches; total run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "bid_argmax",
@@ -2143,6 +2386,16 @@ def main() -> int:
         "launches_sharded_tick": sweep["tick"]["launches"],
         "launches_per_rank_solve": [sv["launches"] for rk in sweep["ranks"]
                                     for sv in rk["solves"]],
+        "launches_baseline_phase": baseline_launches,
+        "launches_per_baseline4_solve": c4["launches_per_solve"],
+        "launches_per_baseline2_solve": c2["launches_per_solve"],
+        "launches_per_sampled_solve": 0,
+        "baseline4_ms": c4["launch_ms"],
+        "baseline4_plain_ms": c4["plain_ms"],
+        "baseline4_bound_ms": c4["launch_bound"],
+        "baseline4_ms_per_solve": c4["ms_per_solve"],
+        "baseline4_bound_ms_per_solve": c4["solve_bound"],
+        "baseline2_ms_per_solve": c2["ms_per_solve"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -43,8 +43,14 @@
 //
 // Numbers: all hash arithmetic is uint32 with logical shifts, and the f32
 // arithmetic uses the _rn intrinsics (the library is built with
-// --fmad=false), so nothing is contracted into an FMA: values and choices
-// match the plain PyTorch version bit for bit.
+// --fmad=false), so nothing is contracted but what is written as
+// __fmaf_rn. The bid is rounded as the JAX package's dense round on the CPU
+// rounds it (XLA fuses a multiply into the add after it there): at w == 0
+// jit * jitter - price, two roundings; with affinity
+//   aff = fma(dn2, fn2, fma(dn1, fn1, dn0 * fn0))
+//   bid = fma(jit, jitter, w * -aff) - price
+// each step rounded once. Values and choices match the plain PyTorch
+// version (ops/bid_argmax.py:fma_f32 for the fused steps) bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,8 +72,8 @@ constexpr uint32_t kC3 = 0xC2B2AE3Du;
 constexpr uint32_t kC4 = 0x85EBCA6Bu;
 constexpr uint32_t kC5 = 0xC2B2AE35u;
 
-__device__ __forceinline__ float jitter_bid(uint32_t row_h, uint32_t node_h,
-                                            float jitter, float price) {
+// The jitter term in [0, 1): the top 24 bits of the (row, node) hash.
+__device__ __forceinline__ float unit_jitter(uint32_t row_h, uint32_t node_h) {
   uint32_t h = row_h ^ node_h;
   h ^= h >> 16;
   h *= kC4;
@@ -75,17 +81,22 @@ __device__ __forceinline__ float jitter_bid(uint32_t row_h, uint32_t node_h,
   h *= kC5;
   h ^= h >> 16;
   // h >> 8 < 2^24: exact in f32, and the 2^-24 scale is exact too
-  const float jit = __fmul_rn(__uint2float_rn(h >> 8), 1.0f / 16777216.0f);
+  return __fmul_rn(__uint2float_rn(h >> 8), 1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ float plain_bid(float jit, float jitter, float price) {
   return __fsub_rn(__fmul_rn(jit, jitter), price);
 }
 
-__device__ __forceinline__ float add_affinity(float bid, float w, float dn0,
-                                              float dn1, float dn2, float fn0,
-                                              float fn1, float fn2) {
+__device__ __forceinline__ float affinity_bid(float jit, float jitter, float price,
+                                              float w, float dn0, float dn1,
+                                              float dn2, float fn0, float fn1,
+                                              float fn2) {
   float aff = __fmul_rn(dn0, fn0);
-  aff = __fadd_rn(aff, __fmul_rn(dn1, fn1));
-  aff = __fadd_rn(aff, __fmul_rn(dn2, fn2));
-  return __fadd_rn(bid, __fmul_rn(w, -aff));  // least free wins
+  aff = __fmaf_rn(dn1, fn1, aff);
+  aff = __fmaf_rn(dn2, fn2, aff);
+  // least free wins
+  return __fsub_rn(__fmaf_rn(jit, jitter, __fmul_rn(w, -aff)), price);
 }
 
 // Larger key = larger value, then lower node index. -0.0 is folded onto
@@ -219,6 +230,9 @@ __global__ void bid_argmax_pack(const float* __restrict__ free_,
   }
 }
 
+// kAff: the affinity term is scored (affinity_weight != 0). Two
+// instantiations keep the affinity operands out of the w == 0 loop.
+template <bool kAff>
 __global__ void __launch_bounds__(kThreads) bid_argmax_score(
     const uint4* __restrict__ rec, const uint4* __restrict__ rec_aff,
     const int32_t* __restrict__ rows,     // [P] live rows, compacted
@@ -248,12 +262,11 @@ __global__ void __launch_bounds__(kThreads) bid_argmax_score(
   hi = min(hi, lo + kChunk);
   if (lo >= hi) return;
   const int cnt = hi - lo;
-  const bool use_aff = affinity_weight != 0.0f;
 
   for (int s = threadIdx.x; s < 2 * cnt; s += kThreads) {
     cp_async16(&s_rec[s], &rec[2 * lo + s]);
   }
-  if (use_aff) {
+  if (kAff) {
     for (int s = threadIdx.x; s < cnt; s += kThreads) {
       cp_async16(&s_aff[s], &rec_aff[lo + s]);
     }
@@ -307,7 +320,7 @@ __global__ void __launch_bounds__(kThreads) bid_argmax_score(
                 cap2 = __uint_as_float(a.z), price = __uint_as_float(a.w);
     const uint32_t part = b.x, feat = b.y, node_h = b.z, nloc = b.w;
     uint4 f = make_uint4(0u, 0u, 0u, 0u);
-    if (use_aff) f = s_aff[t];
+    if (kAff) f = s_aff[t];
 #pragma unroll
     for (int k = 0; k < kRowsPerThread; ++k) {
       // (part == jp || any) && (feat & rf) == rf && (nloc == inc_n || none)
@@ -315,12 +328,12 @@ __global__ void __launch_bounds__(kThreads) bid_argmax_score(
                             ((nloc ^ inc_n[k]) & inc_mask[k]) | (rf[k] & ~feat);
       const bool ok = (miss == 0u) & (d0[k] <= cap0) & (d1[k] <= cap1) &
                       (d2[k] <= cap2);
-      float bid = jitter_bid(row_h[k], node_h, jitter, price);
-      if (use_aff) {
-        bid = add_affinity(bid, affinity_weight, dn0[k], dn1[k], dn2[k],
-                           __uint_as_float(f.x), __uint_as_float(f.y),
-                           __uint_as_float(f.z));
-      }
+      const float jit = unit_jitter(row_h[k], node_h);
+      const float bid =
+          kAff ? affinity_bid(jit, jitter, price, affinity_weight, dn0[k], dn1[k],
+                              dn2[k], __uint_as_float(f.x), __uint_as_float(f.y),
+                              __uint_as_float(f.z))
+               : plain_bid(jit, jitter, price);
       // order-independent: higher value wins; on an equal value the lower
       // node index wins
       if (ok && (bid > best[k] || (bid == best[k] && nloc < best_n[k]))) {
@@ -356,12 +369,13 @@ __global__ void bid_argmax_finish(const unsigned long long* __restrict__ keys, i
   }
   const uint32_t n = 0xFFFFFFFFu - static_cast<uint32_t>(key);
   const uint32_t row_h = ((p_base + static_cast<uint32_t>(i)) * kC1) ^ (salt * kC3);
-  float bid = jitter_bid(row_h, (n_base + n) * kC2, jitter, price[n]);
-  if (affinity_weight != 0.0f) {
-    bid = add_affinity(bid, affinity_weight, dem_n[3 * i], dem_n[3 * i + 1],
-                       dem_n[3 * i + 2], free_n[3 * n], free_n[3 * n + 1],
-                       free_n[3 * n + 2]);
-  }
+  const float jit = unit_jitter(row_h, (n_base + n) * kC2);
+  const float bid =
+      affinity_weight != 0.0f
+          ? affinity_bid(jit, jitter, price[n], affinity_weight, dem_n[3 * i],
+                         dem_n[3 * i + 1], dem_n[3 * i + 2], free_n[3 * n],
+                         free_n[3 * n + 1], free_n[3 * n + 2])
+          : plain_bid(jit, jitter, price[n]);
   best_out[i] = bid;
   choice_out[i] = static_cast<int32_t>(n_base + n);
 }
@@ -404,7 +418,8 @@ extern "C" int sbt_bid_argmax(
       free_, node_part, node_feat, price, free_n, node_order, n,
       static_cast<uint32_t>(n_base), use_aff, static_cast<uint4*>(rec),
       static_cast<uint4*>(rec_aff), p, key);
-  bid_argmax_score<<<dim3(tiles, chunks), kThreads, 0, s>>>(
+  auto* score = use_aff ? &bid_argmax_score<true> : &bid_argmax_score<false>;
+  score<<<dim3(tiles, chunks), kThreads, 0, s>>>(
       static_cast<const uint4*>(rec), static_cast<const uint4*>(rec_aff), rows,
       live_count, offsets, k, n, dem, job_part, req_feat, incumbent, dem_n,
       static_cast<uint32_t>(salt), static_cast<uint32_t>(p_base),

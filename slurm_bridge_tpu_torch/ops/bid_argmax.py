@@ -39,10 +39,19 @@ Source note:
 - No single PyTorch call computes this function, so the kernel has no
   library yardstick.
 
-Every f32 operation of the kernel is a separately rounded ``_rn`` intrinsic
-(and the library is built with ``--fmad=false``), and every operation of
-the plain version is a separate PyTorch op, so the two agree bit for bit at
-any ``jitter`` and ``affinity_weight``.
+Rounding: the bid is rounded as the JAX package's dense round rounds it on
+the CPU, where XLA contracts a multiply and the add after it into one fused
+multiply-add. With affinity that is
+
+    aff = fma(d2, f2, fma(d1, f1, d0·f0))
+    bid = fma(hash, jitter, w·(−aff)) − price
+
+each step rounded once; at ``affinity_weight == 0`` it is
+``hash·jitter − price``, two roundings. The kernel spells every step with
+an ``_rn`` intrinsic (``__fmaf_rn`` for the fused ones; the library is built
+with ``--fmad=false``, so nothing else is contracted), and the plain version
+with :func:`fma_f32` for the fused ones, so the two agree bit for bit at any
+``jitter`` and ``affinity_weight``, and both with the reference's dense path.
 """
 
 from __future__ import annotations
@@ -80,13 +89,18 @@ LIST_SLICE = 1024
 
 #: Instructions per needed (shard, node) cell in the kernel's cell loop at
 #: ``affinity_weight == 0``, by the pipe that issues them, counted from its
-#: SASS (``cuobjdump -sass`` of the ``sm_90a`` build): one staged node
-#: scored against a thread's four rows is 132 instructions — integer
-#: (LOP3 32, IMAD 22, SHF 16, ISETP 5, PLOP3 4, VIADD 3), f32 (FSETP 21,
-#: FMUL 8, FADD 4), conversion (I2FP 4), shared loads (LDS.128 3, one of
-#: them the affinity record's, predicated off) and branch and uniform
-#: bookkeeping (10).
-CELL_OPS = dict(int=82 / 4, f32=33 / 4, cvt=4 / 4, lds=2 / 4)
+#: SASS (``tools/port_sass.py``: ``cuobjdump -sass`` of the ``sm_90a``
+#: build, the ``bid_argmax_score<false>`` instantiation): one pass of the
+#: loop scores two staged nodes against a thread's four rows in 240
+#: instructions — integer 158 (LOP3 64, IMAD 32, SHF 40, ISETP 9, PLOP3 8,
+#: VIADD 5), f32 64 (FSETP 40, FMUL 16, FADD 8), conversion 8 (I2FP),
+#: shared loads 4 (LDS.128) and branch and uniform bookkeeping 6.
+CELL_OPS = dict(int=158 / 8, f32=64 / 8, cvt=8 / 8, lds=4 / 8)
+#: The same with the affinity term (``bid_argmax_score<true>``, 277
+#: instructions a pass): f32 96 (FSETP 40, FFMA 24, FMUL 24, FADD 8) — per
+#: cell the chain's FMUL and two FFMAs and ``w·(−aff)``'s FMUL, the
+#: jitter's FMUL turned FFMA — shared loads 6 (the affinity record's too).
+CELL_OPS_AFF = dict(int=158 / 8, f32=96 / 8, cvt=8 / 8, lds=6 / 8)
 #: Arithmetic operations per needed cell (for the roofline bound).
 OPS_PER_CELL = CELL_OPS["int"] + CELL_OPS["f32"] + CELL_OPS["cvt"]
 
@@ -428,6 +442,46 @@ def unit(h: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return ((h >> 8).to(torch.float32) * (1.0 / (1 << 24))).to(dtype)
 
 
+def fma_f32(a, b, c) -> torch.Tensor:
+    """``a·b + c`` rounded once to float32 — what CUDA's ``__fmaf_rn``
+    returns, and the fused multiply-add XLA's CPU backend contracts a
+    multiply and an add into — for float32 tensors or Python floats
+    (rounded to float32 first), broadcast. Torch has no fused multiply-add
+    that rounds once on every device.
+
+    The product of two float32 values is exact in float64. The float64 sum
+    is rounded to odd: its exact error (a two-sum) decides whether the last
+    bit is set, so no float64 value that lies on a float32 halfway point
+    stands for a sum that does not. Float64 keeps 29 bits more than
+    float32, so the one rounding to float32 after it is the correctly
+    rounded sum: no double rounding. (A plain float64 ``a·b + c`` rounded
+    to float32 would differ where the exact sum needs more than 53 bits and
+    its float64 rounding lands on a halfway point, e.g. a = 2^-24·(1 −
+    2^-23), b = c = 1 + 2^-23.)"""
+    a, b, c = (torch.as_tensor(x, dtype=torch.float32).double() for x in (a, b, c))
+    p = a * b
+    s = p + c
+    v = s - p  # two-sum: s + e == p + c exactly
+    e = (p - (s - v)) + (c - v)
+    bits = s.view(torch.int64)
+    inexact = (e != 0) & torch.isfinite(s)
+    # toward zero (one step down in magnitude where s rounded away), then
+    # the last bit set: the neighbour of the exact sum whose last bit is odd
+    bits = torch.where(inexact & ((e < 0) != (s < 0)), bits - 1, bits)
+    bits = torch.where(inexact, bits | 1, bits)
+    return bits.view(torch.float64).float()
+
+
+def affinity_fma(dem_n: torch.Tensor, free_n: torch.Tensor) -> torch.Tensor:
+    """``Σ_r dem_n[..., r]·free_n[..., r]`` (operands broadcast) as XLA's
+    CPU backend computes the reference's 3-term product: the fused chain
+    ``fma(d2, f2, fma(d1, f1, d0·f0))``, each step rounded once."""
+    aff = dem_n[..., 0] * free_n[..., 0]
+    for r in range(1, dem_n.shape[-1]):
+        aff = fma_f32(dem_n[..., r], free_n[..., r], aff)
+    return aff
+
+
 def bid_argmax_plain(
     free, node_part, node_feat, price, dem, job_part, req_feat, incumbent,
     dem_n, free_n, salt: int, p_base: int = 0, n_base: int = 0,
@@ -477,12 +531,12 @@ def bid_argmax_plain(
             ni = torch.where(ni32 >= 1 << 31, ni32 - (1 << 32), ni32)  # as int32
             ok &= (inc < 0) | (ni[None, :] == inc)
             jit = unit(mix(pi[:, None], ni32[None, :], salt))
-            bid = jit * jitter - price[None, cols]
             if affinity_weight != 0.0:
-                aff = dn[:, 0:1] * free_n[None, cols, 0]
-                aff = aff + dn[:, 1:2] * free_n[None, cols, 1]
-                aff = aff + dn[:, 2:3] * free_n[None, cols, 2]
-                bid = bid + affinity_weight * -aff  # best-fit: least free wins
+                aff = affinity_fma(dn[:, None, :], free_n[None, cols, :])
+                # best-fit: least free wins
+                bid = fma_f32(jit, jitter, affinity_weight * -aff) - price[None, cols]
+            else:
+                bid = jit * jitter - price[None, cols]
             val = torch.where(ok, bid, float("-inf"))
             t_arg = val.argmax(dim=1)  # first maximal node of the tile
             t_max = val.gather(1, t_arg[:, None])[:, 0]

@@ -36,7 +36,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from slurm_bridge_tpu_torch.ops.bid_argmax import bid_argmax, mix, node_order, row_order, unit
+from slurm_bridge_tpu_torch.ops.bid_argmax import (
+    affinity_fma, bid_argmax, fma_f32, mix, node_order, row_order, unit,
+)
 from slurm_bridge_tpu_torch.solver.snapshot import ClusterSnapshot, JobBatch, Placement
 
 log = logging.getLogger("sbt.auction")
@@ -226,16 +228,23 @@ def dense_score_choose(
     whole. ``p_off``/``n_off`` place a block of the sweep (:mod:`sharded`)
     at its global rows and nodes: the jitter hash and the incumbent pin see
     global indices, the returned choice is local. Returns (choice [P] i32,
-    best [P])."""
+    best [P]).
+
+    In float32 the bid is rounded as the reference's round is on the CPU,
+    where XLA fuses each multiply into the add after it: with affinity
+    ``fma(hash, jitter, w·(−aff)) − price`` over the fused 3-term chain
+    (:func:`affinity_fma`, :func:`fma_f32`), the kernel's arithmetic;
+    without, ``hash·jitter − price``. Another ``dtype`` keeps the
+    reference's expression unfused, with the affinity as a matrix product."""
     p, n = dem.shape[0], free.shape[0]
     device = dem.device
     free_n = (free * scale).to(dtype)
     nf = node_feat.long() & _M32
     node_ids = torch.arange(n, device=device) + n_off
     price_d = price.to(dtype)
-    if affinity_weight:
-        torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
-    rows = max(1, chunk_cells // max(n, 1))
+    fused = bool(affinity_weight) and dtype == torch.float32
+    # the fused affinity holds a few float64 [rows, N] temporaries
+    rows = max(1, (chunk_cells // 8 if fused else chunk_cells) // max(n, 1))
     choice = torch.empty(p, dtype=torch.int32, device=device)
     best = torch.empty(p, dtype=torch.float32, device=device)
     for a in range(0, p, rows):
@@ -249,12 +258,14 @@ def dense_score_choose(
         static_ok = torch.where(inc >= 0, (node_ids[None, :] == inc) & static_ok, static_ok)
         cap_ok = (dem[s, None, :] <= free[None, :, :] + 1e-6).all(-1)
         feasible = static_ok & cap_ok
-        bid = hash_jitter(
-            s.stop - a, n, rnd, dtype, p_off=p_off + a, n_off=n_off, device=device
-        ) * jitter
-        if affinity_weight:
-            affinity = -(dem_n[s] @ free_n.T)
-            bid = affinity_weight * affinity + bid
+        h = hash_jitter(s.stop - a, n, rnd, dtype, p_off=p_off + a, n_off=n_off, device=device)
+        if fused:
+            aff = affinity_fma(dem_n[s, None, :], free_n[None, :, :])
+            bid = fma_f32(h, jitter, affinity_weight * -aff)
+        elif affinity_weight:
+            bid = affinity_weight * -(dem_n[s] @ free_n.T) + h * jitter
+        else:
+            bid = h * jitter
         bid = bid - price_d[None, :]
         bid = torch.where(feasible, bid, _NEG_INF)
         c = bid.argmax(dim=1)
@@ -272,10 +283,16 @@ def sampled_score_choose(
 ):
     """One power-of-K-choices score/choose step: each shard draws K
     candidate nodes from its (partition, feature) slice of ``part_order``
-    and bids only on those — O(P·K) instead of O(P·N). At
-    ``affinity_weight=0`` a candidate's bid is bit-identical to what the
-    full [P, N] path scores for the same (shard, node, round). Returns
-    (choice [P] i32, best [P])."""
+    and bids only on those — O(P·K) instead of O(P·N). Returns (choice
+    [P] i32, best [P]).
+
+    In float32 the bid is rounded as the reference's sampled round is on
+    the CPU, where XLA fuses ``hash·jitter − price`` into one fused
+    multiply-add, the 3-term affinity into the fused chain and ``+ w·aff``
+    into another: ``fma(w, −aff, fma(hash, jitter, −price))``
+    (:func:`fma_f32`, :func:`affinity_fma`). So at ``affinity_weight=0`` a
+    candidate's bid is what the full [P, N] path scores for the same
+    (shard, node, round) only at ``jitter=1``, as in the reference."""
     p = dem.shape[0]
     device = dem.device
     inc = incumbent >= 0
@@ -305,11 +322,18 @@ def sampled_score_choose(
     feas &= (~inc | inc_feas)[:, None]
     if check_feats:
         feas &= (nf[cand] & rf[:, None]) == rf[:, None]
-    jit_k = unit(mix(pi, cand.long() & _M32, salt), dtype) * jitter
-    bid = jit_k - price[cand].to(dtype)
-    if affinity_weight:
-        aff = -(dem_n[:, None, :] * (freec * scale).to(dtype)).sum(-1)
-        bid = bid + affinity_weight * aff
+    jit_k = unit(mix(pi, cand.long() & _M32, salt), dtype)
+    price_k = price[cand].to(dtype)
+    if dtype == torch.float32:
+        bid = fma_f32(jit_k, jitter, -price_k)
+        if affinity_weight:
+            aff = -affinity_fma(dem_n[:, None, :], freec * scale)
+            bid = fma_f32(affinity_weight, aff, bid)
+    else:
+        bid = jit_k * jitter - price_k
+        if affinity_weight:
+            aff = -(dem_n[:, None, :] * (freec * scale).to(dtype)).sum(-1)
+            bid = bid + affinity_weight * aff
     bid = torch.where(feas, bid, _NEG_INF)
     kbest = bid.argmax(dim=1)[:, None]
     choice = cand.gather(1, kbest)[:, 0]

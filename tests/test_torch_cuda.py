@@ -72,6 +72,65 @@ def test_kernel_bit_exact_with_plain(cuda, n, p, aw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("jitter", [1.0, 0.7])
+@pytest.mark.parametrize("aw", [0.05, 0.3])
+def test_kernel_equals_dense_with_affinity(cuda, aw, jitter):
+    """With the affinity term the kernel, its plain version and the dense
+    plain path (``dense_score_choose``, elementwise fused steps, no matrix
+    product) give the same values and choices on the card, bit for bit —
+    the rounding the JAX package's dense round on the CPU gives."""
+    from slurm_bridge_tpu_torch.solver.auction import dense_score_choose
+
+    n, p = 2000, 1800
+    args = _op_inputs(31, n, p, cuda)
+    args[7][:] = -1  # no incumbents
+    free, node_part, node_feat, price, dem, job_part, req_feat, inc, dem_n, free_n = args
+    scale = torch.tensor([1 / 32, 1 / 40, 0.02], device=cuda)
+    free_n = free * scale
+    dem_n = dem * scale
+    args[8], args[9] = dem_n.contiguous(), free_n.contiguous()
+    bv, bi = _kernel_vs_plain(args, 9, n, aw=aw, jitter=jitter)
+    dc, dv = dense_score_choose(
+        free, price, dem, dem_n, job_part, req_feat, node_part, node_feat, inc, 9,
+        jitter=jitter, affinity_weight=aw, dtype=torch.float32, scale=scale)
+    feas = torch.isfinite(bv)
+    assert feas.float().mean() > 0.3
+    assert torch.equal(dv.view(torch.int32), bv.view(torch.int32))
+    assert torch.equal(dc[feas], bi[feas])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("candidates", [0, 64])
+def test_config4_shaped_solve_on_card_equals_cpu(cuda, candidates):
+    """BASELINE config #4's shape and solve (16 rounds, 8 salvage rounds,
+    gang-first, affinity 0.05) at 400 nodes: the card's ``DeviceSolver``
+    (the kernel for the full argmax, 16 launches; none on the sampled
+    path) places as the CPU's dense or sampled solve."""
+    snap, batch = random_scenario(400, 500, seed=4, load=0.8, gang_fraction=0.5, gang_size=8)
+    solve = dict(rounds=16, gang_salvage_rounds=8, gang_first=True, affinity_weight=0.05,
+                 candidates=candidates)
+    cpu = auction_place(snap, batch, AuctionConfig(**solve), device="cpu")
+    before = kern.LAUNCHES
+    card = DeviceSolver(snap, AuctionConfig(**solve)).solve(batch)
+    assert kern.LAUNCHES - before == (16 if candidates == 0 else 0)
+    np.testing.assert_array_equal(card.node_of, cpu.node_of)
+    assert card.placed.sum() > batch.num_shards // 2
+
+
+@pytest.mark.cuda
+def test_sampled_headline_shape_on_card_equals_cpu(cuda):
+    """The sampled path (K=64) on a headline-shaped batch: draws with
+    duplicate candidates tie exactly, and the card's argmax takes the
+    first, as the CPU's does."""
+    snap, batch = random_scenario(600, 3000, seed=42, load=0.7, gpu_fraction=0.15,
+                                  gang_fraction=0.05)
+    cfg = AuctionConfig(rounds=8, candidates=64)
+    cpu = auction_place(snap, batch, cfg, device="cpu")
+    card = DeviceSolver(snap, cfg).solve(batch)
+    np.testing.assert_array_equal(card.node_of, cpu.node_of)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("p_base,n_base", [(1000, 5000), (2**31 - 100, 2**31 - 40)])
 def test_kernel_offsets(cuda, p_base, n_base):
     args = _op_inputs(3, 300, 200, cuda)

@@ -15,7 +15,8 @@ import torch
 from slurm_bridge_tpu.ops.bid_argmax import bid_argmax as jax_bid_argmax
 import slurm_bridge_tpu_torch.ops.bid_argmax as ops_mod
 from slurm_bridge_tpu_torch.ops.bid_argmax import (
-    bid_argmax, bid_argmax_plain, mix, node_order, row_order, tile_ranges, unit, work_list,
+    affinity_fma, bid_argmax, bid_argmax_plain, fma_f32, mix, node_order, row_order,
+    tile_ranges, unit, work_list,
 )
 from tests.test_ops import _random_op_inputs, _reference
 
@@ -309,12 +310,12 @@ def _dense_values(args, salt, *, jitter, aw):
     for r in range(3):
         ok &= dem[:, r : r + 1] <= (free + 1e-6)[None, :, r]
     ok &= (inc[:, None] < 0) | (torch.arange(n)[None, :] == inc[:, None])
-    bid = unit(mix(torch.arange(p)[:, None], torch.arange(n)[None, :], salt)) * jitter - price[None, :]
+    jit = unit(mix(torch.arange(p)[:, None], torch.arange(n)[None, :], salt))
     if aw:
-        aff = dem_n[:, 0:1] * free_n[None, :, 0]
-        aff = aff + dem_n[:, 1:2] * free_n[None, :, 1]
-        aff = aff + dem_n[:, 2:3] * free_n[None, :, 2]
-        bid = bid + aw * -aff
+        aff = affinity_fma(dem_n[:, None, :], free_n[None, :, :])
+        bid = fma_f32(jit, jitter, aw * -aff) - price[None, :]
+    else:
+        bid = jit * jitter - price[None, :]
     return torch.where(ok, bid, float("-inf"))
 
 

@@ -69,8 +69,21 @@ typed headline inventory as ``--tick`` builds it, with the sweep's mesh
 cut to one device (a 1×1 mesh, the one card chip_smoke.py has), and prints
 its route and tick digest.
 
-chip_smoke.py holds the port's solve, tick, simulator, streaming, sidecar
-and sweep runs on the card to these numbers.
+``--baseline {2,4}``: runs the JAX package's ``auction_place`` on BASELINE
+config #2 or #4 (``benchmarks/scenarios/__init__.py`` ``scenario_2``,
+``scenario_4``; chip_smoke.py's ``BASELINE2``/``BASELINE4`` and their
+solve configs: #4 is 16 rounds, 8 salvage rounds, gang-first, affinity
+0.05) with the dense full argmax pinned (``candidates=0``,
+``use_pallas=False``: unpinned, the JAX package on the CPU would sample
+K=64 once P·N ≥ 2^25), and prints what the default run prints.
+
+``--candidates K``: pins ``AuctionConfig.candidates = K`` instead, the
+sampled auction path (K hash-drawn candidates per shard from its
+``CandidatePools`` slice), for ``--baseline`` or for the default
+``random_scenario`` run (``rounds=8``).
+
+chip_smoke.py holds the port's solve, tick, simulator, streaming, sidecar,
+sweep and BASELINE-config runs on the card to these numbers.
 
     JAX_PLATFORMS=cpu python tools/port_reference.py --nodes 2000 --jobs 10000
     JAX_PLATFORMS=cpu python tools/port_reference.py --tick --nodes 10000 --jobs 50000
@@ -81,6 +94,10 @@ and sweep runs on the card to these numbers.
     JAX_PLATFORMS=cpu python tools/port_reference.py --place --nodes 10000 --jobs 50000
     JAX_PLATFORMS=cpu python tools/port_reference.py --bridge
     JAX_PLATFORMS=cpu python tools/port_reference.py --sharded
+    JAX_PLATFORMS=cpu python tools/port_reference.py --baseline 4
+    JAX_PLATFORMS=cpu python tools/port_reference.py --baseline 4 --candidates 64
+    JAX_PLATFORMS=cpu python tools/port_reference.py --baseline 2
+    JAX_PLATFORMS=cpu python tools/port_reference.py --nodes 10000 --jobs 50000 --candidates 64
 """
 
 from __future__ import annotations
@@ -103,6 +120,10 @@ if "--sharded" in sys.argv:
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
+    BASELINE2,
+    BASELINE2_SOLVE,
+    BASELINE4,
+    BASELINE4_SOLVE,
     BRIDGE,
     CHURN,
     CHURN_TICKS,
@@ -352,7 +373,15 @@ def main() -> None:
     ap.add_argument("--sharded", action="store_true",
                     help="run the multi-device sweep on a 2x2 mesh of CPU devices and "
                     "one forced-sharded tick on a 1x1 mesh")
+    ap.add_argument("--baseline", type=int, choices=(2, 4), default=None,
+                    help="run BASELINE config #2 or #4 with its own solve config")
+    ap.add_argument("--candidates", type=int, default=0, metavar="K",
+                    help="pin the sampled auction path with K candidates per shard "
+                    "(default 0: the dense full argmax)")
     args = ap.parse_args()
+    if (args.baseline is not None or args.candidates) and (
+            args.tick or args.sim or args.churn or args.place or args.bridge or args.sharded):
+        ap.error("--baseline and --candidates go with the default solve only")
     if args.bridge:
         res = run_bridge(args.nodes or BRIDGE["num_nodes"], args.jobs or BRIDGE["num_jobs"],
                          args.seed)
@@ -399,8 +428,16 @@ def main() -> None:
             "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
         }))
         return
-    snap, batch = random_scenario(args.nodes, args.jobs, seed=args.seed, **SCENARIO)
-    cfg = AuctionConfig(rounds=8, candidates=0, use_pallas=False)
+    shape = dict(num_nodes=args.nodes, num_jobs=args.jobs, seed=args.seed, **SCENARIO)
+    solve = dict(rounds=8)
+    if args.baseline is not None:
+        shape, solve = {2: (BASELINE2, BASELINE2_SOLVE), 4: (BASELINE4, BASELINE4_SOLVE)}[
+            args.baseline]
+        scenario = {"baseline": args.baseline, **shape}
+    config = (f"AuctionConfig({', '.join(f'{k}={v}' for k, v in solve.items())}, "
+              f"candidates={args.candidates}, use_pallas=False)")
+    snap, batch = random_scenario(**shape)
+    cfg = AuctionConfig(**solve, candidates=args.candidates, use_pallas=False)
     t0 = time.perf_counter()
     pl = auction_place(snap, batch, cfg)
     secs = time.perf_counter() - t0
