@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port: the placement solve, the
-placement tick, the bridge's job lifecycle on the simulated cluster, its
-recovery from a crash, the sharded tick, the streaming reschedule, the
-placement-solver sidecar, the bridge's daemons, the multi-device sweep and
-the BASELINE configs #2 and #4 and the sampled auction path.
+placement tick, the bridge's job lifecycle on the simulated cluster and
+its steady state, its recovery from a crash, the sharded tick and its
+steady state, the streaming reschedule, the placement-solver sidecar, the
+bridge's daemons, the multi-device sweep, the BASELINE configs #2 and #4
+and the sampled auction path, and the streaming-admission fast path.
 
     python3 chip_smoke.py
 
@@ -52,22 +53,32 @@ which fails the run:
    ``AuctionConfig(rounds=8)``) must route tick 1 to the card with the
    same digest, its kernel calls timed with the gated CUDA events of
    phase 3; prints each tick's phase times (store, encode, solve, bind);
-6. drive the bridge's job lifecycle at full width: the simulator's
-   ``full_50kx10k`` (10,000 nodes, 50,000 jobs, 3 ticks) through the
-   port's ``SimHarness`` — operator, configurator, virtual-node providers
+6. drive the bridge's job lifecycle at full width and its steady state:
+   the simulator's ``full_50kx10k_steady`` (10,000 nodes, 50,000
+   front-loaded jobs: ``full_50kx10k``'s 3 ticks and three more) through
+   the port's ``SimHarness`` — operator, configurator, virtual-node providers
    submitting to and mirroring the simulated agent over the port's wire
    codec, the placement scheduler on the card — with the engine pinned
-   (``backend="auction"``, ``AuctionConfig(rounds=8, candidates=0)``). Its
-   determinism ``digest``, ``final_state_digest`` and ``bound_total`` must
-   equal the JAX package's (:data:`SIM_REFERENCE`), with no invariant
-   violated; every solving tick launches the kernel 8 times per solve;
+   (``backend="auction"``, ``AuctionConfig(rounds=8, candidates=0)``).
+   After tick 2 (:data:`STEADY_CHECKPOINT_TICK`) its running determinism
+   ``digest``, its ``final_state_digest`` and ``bound_total`` must equal
+   the JAX package's 3-tick ``full_50kx10k`` (:data:`SIM_REFERENCE`), and
+   at its end the JAX package's ``full_50kx10k_steady``
+   (:data:`SIM_STEADY_REFERENCE`), with no invariant violated; it must
+   have as many steady ticks as the JAX package's run, each with no
+   solve, no kernel launch, no store commit and the JAX package's count
+   of (cursor-scoped) ``JobsInfo`` calls, and their tick p50
+   (``steady_tick_p50_ms``) within the scenario's ``steady_gate_ms``
+   (50 ms), as ``sim/cli.py`` requires; every solving tick launches the
+   kernel 8 times per solve;
    each of tick 0's kernel calls is held bit-exact against its plain
    version on its own operands; the providers' bulk RPCs must have gone
    through the column decoder (rows counted, no fallback) and their
    submits through the forked worker pool. Then the same scenario at the
    product default (``backend="auto"``) for one tick must reach the card
    with no violation. Prints each tick's phases (arrive, store, encode,
-   solve, bind, mirror, other), the tick p50 and the phase's wall time;
+   solve, bind, mirror, other), store commits, ``JobsInfo`` calls and
+   steady verdict, the tick p50 and the phase's wall time;
 7. recovery at full width: ``full_50kx10k_crash`` (10,000 nodes, 50,000
    front-loaded jobs, 4 ticks, a bridge crash at tick 2 that reloads the
    snapshot and WAL into a fresh store, scheduler and ``DeviceSolver``)
@@ -78,22 +89,27 @@ which fails the run:
    per solve; each kernel call of the first solve after the restart is
    held bit-exact against its plain version on its own operands. Prints
    ``recovery_ms``, the WAL records and snapshots and each tick's phases;
-8. the sharded tick at the headline's full size: ``full_500kx100k``
-   uncut (100,000 nodes in 16 partitions, 500,000 front-loaded jobs, 5 %
-   gangs, 15 % GPU nodes, its 3 ticks) with
+8. the sharded tick at the headline's full size and its steady state:
+   ``full_500kx100k_steady`` uncut (100,000 nodes in 16 partitions,
+   500,000 front-loaded jobs, 5 % gangs, 15 % GPU nodes:
+   ``full_500kx100k``'s 3 ticks and three more) with
    ``ShardConfig(max_nodes_per_shard=8192, workers=2, device_solve=False)``
    and the same pinned engine, under its own deadline
    (:data:`SHARD_DEADLINE_S`). The plan must have at least two shards,
    every shard's solve must launch the kernel 8 times, every kernel call
    of tick 0 (round 0 and the last round of its first and largest shard
    solves among them) is held bit-exact against the plain version on its
-   own operands, and the ``digest``, ``final_state_digest``, ``bound_total`` and cross-shard
-   ``reconcile_placed`` must equal the JAX package's
-   (:data:`SHARD_REFERENCE`). Prints each tick's phases, the plan's shard
-   sizes, the shard solves (rows, nodes, launches, ms), the tick p50 and
-   the phase-sum drift beside the scenario's gates (``p50_gate_ms``,
-   ``phase_reconcile_pct``; printed, as ``sim/cli.py`` enforces them and
-   the harness does not), the device's and the host's peak memory, and
+   own operands; after tick 2 the ``digest``, ``final_state_digest`` and
+   ``bound_total`` must equal the JAX package's 3-tick ``full_500kx100k``
+   (:data:`SHARD_REFERENCE`), and at the end those and the cross-shard
+   ``reconcile_placed`` the JAX package's ``full_500kx100k_steady``
+   (:data:`SHARD_STEADY_REFERENCE`); its steady ticks are held as phase
+   6's are (the gate: 1,000 ms). Prints each tick's phases, the plan's shard
+   sizes, the shard solves (rows, nodes, launches, ms), the tick p50 over
+   ticks 0-2 and their phase-sum drift beside ``full_500kx100k``'s gates
+   (``p50_gate_ms``, ``phase_reconcile_pct``; printed, as ``sim/cli.py``
+   enforces them and the harness does not), the device's and the host's
+   peak memory, and
    the first and largest shard solves' kernel calls timed again on their
    operands;
 9. the streaming reschedule at full width (BASELINE config #5):
@@ -181,9 +197,29 @@ which fails the run:
     config #4: 6 solves each, no kernel launch, ``node_of`` equal to the
     JAX package's (:data:`SAMPLED_REFERENCE`); prints solve p50 and device
     memory peak;
-14. hold the card against the JAX package's result on a reduced scenario
+14. the streaming-admission fast path at the headline's cluster width:
+    ``interactive_storm`` at scale :data:`STORM_SCALE` (9,600 nodes in 2
+    partitions, 44,000 jobs arriving diurnally over 16 ticks, 15 % gangs,
+    30 % production class, two production probes at tick 0, 24 ticks)
+    with its ``PolicyConfig()`` and ``AdmissionConfig()`` and the same
+    pinned engine: the fast path binds interactive arrivals against the
+    residual view each solve re-bases from its host ``free_after``. Its
+    ``digest``, ``final_state_digest``, ``bound_total``, the admitter's
+    attempts, binds, misses by reason and window re-bases, and the
+    interactive arrivals and fast binds must equal the JAX package's
+    (:data:`STORM_REFERENCE`), with no invariant violated; as
+    ``sim/cli.py``'s admission gate holds them (``ADMISSION_GATES``): at
+    least 10 fast binds, a non-empty ``FastPathAdmitter.misses``, and an
+    interactive arrival-to-bind p99 of at most 100 ms (a fast bind costs
+    its measured wall time, a batch bind half a tick period or more);
+    every solving tick launches the kernel 8 times per solve, and each
+    kernel call of the first solving tick is held bit-exact against its
+    plain version on its own operands. Prints each tick's phases, the
+    fast binds and misses by reason, and the p50 and p99 of one fast
+    admission's wall time;
+15. hold the card against the JAX package's result on a reduced scenario
     (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
-15. print times with the card's name and power limit, and the run's wall
+16. print times with the card's name and power limit, and the run's wall
     time.
 
 The second-to-last lines are the kernels' JSON record and the
@@ -248,10 +284,27 @@ CRASH_REFERENCE = dict(
     restarts=1,
     restored_objects=[100004],
 )
+#: The JAX package's simulator on ``full_50kx10k_steady`` (the
+#: ``full_50kx10k`` shape run three ticks longer) at full width with the
+#: auction pinned, on the CPU, from ``JAX_PLATFORMS=cpu python
+#: tools/port_reference.py --sim full_50kx10k_steady`` (20.1 s wall and
+#: 5,750 MiB peak RSS on an 8-core host). Tick 3 still binds (one solve,
+#: 14 commits), so ticks 4-5 are its steady ticks. After tick 2 its
+#: trace digest, state and bound are :data:`SIM_REFERENCE`'s.
+SIM_STEADY_REFERENCE = dict(
+    digest="9e6b76ab0ea23327f9e9cceb7b00d68336f64950f560f16296db4f897a8d64d0",
+    final_state_digest="fadf07b1ee032ee1c9b276455174ecfe101043aa54378f02ded9ef2109b410ca",
+    bound_total=46059,
+    steady_ticks=2,
+    steady_jobsinfo_calls=24,
+)
+#: The tick after which a ``*_steady`` run has done what its 3-tick twin
+#: does: its running trace digest, state and bound equal the twin's end.
+STEADY_CHECKPOINT_TICK = 2
 #: Phase 8 fails if a tick of its run ends more than this many seconds
 #: after the run's harness was built (about twice what the run takes on
 #: the card's host).
-SHARD_DEADLINE_S = 480
+SHARD_DEADLINE_S = 640
 #: The JAX package's simulator on ``full_500kx100k`` uncut (100,000 nodes
 #: in 16 partitions, 500,000 front-loaded jobs, 3 ticks, ``ShardConfig(
 #: max_nodes_per_shard=8192, workers=2)``) with the auction pinned and
@@ -264,6 +317,44 @@ SHARD_REFERENCE = dict(
     final_state_digest="dc65c9cafdca1af0690431877aac0e0c457574b23570956d4f185b859e008f36",
     bound_total=462742,
     reconcile_placed=0,
+)
+#: The JAX package's simulator on ``full_500kx100k_steady`` uncut (the
+#: ``full_500kx100k`` shape run three ticks longer) with the auction
+#: pinned and every shard on the single-device auction, on the CPU, from
+#: ``JAX_PLATFORMS=cpu python tools/port_reference.py --sim
+#: full_500kx100k_steady`` (203.2 s wall and 7,611 MiB peak RSS on an
+#: 8-core host). Tick 3 still binds (one solve, 23 commits), so ticks 4-5
+#: are its steady ticks; each makes 240 ``JobsInfo`` calls, 15 per shard:
+#: a provider's status pass sends its ~29,000 job ids in requests of 2,000
+#: (``bridge/vnode.py``'s ``_BULK_CHUNK``), each cursor-scoped. After tick
+#: 2 its trace digest, state and bound are :data:`SHARD_REFERENCE`'s.
+SHARD_STEADY_REFERENCE = dict(
+    digest="d7fc727051580fc9509c24a59da53793b98472f037ad3a579f44345683e73757",
+    final_state_digest="66b2f4b0af025f9f3114bcb1822f1a3cb4b34fccde10d259937465667c7ffc9a",
+    bound_total=462742,
+    reconcile_placed=0,
+    steady_ticks=2,
+    steady_jobsinfo_calls=240,
+)
+#: Phase [14]'s scale of ``interactive_storm``: the JAX package's own
+#: scale knob at the largest round value that keeps the headline's
+#: cluster width (9,600 nodes in 2 partitions, 44,000 jobs over 16 ticks
+#: of diurnal arrivals, 24 ticks).
+STORM_SCALE = 40
+#: The JAX package's simulator on ``interactive_storm`` at
+#: :data:`STORM_SCALE` with its policy and admission configs and the
+#: auction pinned, on the CPU, from ``JAX_PLATFORMS=cpu python
+#: tools/port_reference.py --sim interactive_storm --scale 40`` (47.2 s
+#: wall and 1,383 MiB peak RSS on an 8-core host): digests, bound, the
+#: admitter's decision counts and the interactive arrivals and fast binds
+#: the latency gate reads.
+STORM_REFERENCE = dict(
+    digest="f6d27152792f11aa1d58c28432e4b06a1987966b3caf7422c3a04824fd64aae9",
+    final_state_digest="d69e93035130cec47d1a955de29f81c1f40d731fc088f36e98da5bbb575754a1",
+    bound_total=43692,
+    admission=dict(attempts=13196, binds=12393, misses={"not_ready": 803}, inventory_rebases=18),
+    interactive_arrivals=10959,
+    fastpath_binds=10959,
 )
 #: The streaming reschedule at full width: BASELINE config #5's shape and
 #: seed (``benchmarks/scenarios/__init__.py`` ``scenario_5``) — one
@@ -1070,19 +1161,24 @@ def pin_auction(sc):
     return sc
 
 
-def run_sim(kern, smi: str, sc, label: str, keep=(), deadline_s: float | None = None):
+def run_sim(kern, smi: str, sc, label: str, keep=(), deadline_s: float | None = None,
+            checkpoint: int | None = None) -> dict:
     """One scenario through ``SimHarness`` on the card, counting each
-    tick's kernel launches and solves and noting which scheduler ran it
-    (a restart builds a new one); the kernel calls of the ticks in
-    ``keep`` are kept (operands and results, untimed). Prints each tick's
-    phases. With ``deadline_s``, a tick that ends more than that many
-    seconds after the harness was built fails the run. Returns (result,
-    ticks, {tick: calls}, wall seconds)."""
+    tick's kernel launches and solves, noting which scheduler ran it (a
+    restart builds a new one) and reading the harness's own tick record
+    (store commits, ``JobsInfo`` calls, the steady verdict); the kernel
+    calls of the ticks in ``keep`` are kept (operands and results,
+    untimed). After tick ``checkpoint`` it takes a copy of the running
+    trace digest, the final-state digest and the bound count: what a
+    run that ended there would report. Prints each tick's phases. With
+    ``deadline_s``, a tick that ends more than that many seconds after
+    the harness was built fails the run. Returns {result, ticks, kept,
+    at (the checkpoint's), wall_s, harness}."""
     from slurm_bridge_tpu_torch.sim.harness import PHASES, SimHarness
 
     t_built = time.perf_counter()
     h = SimHarness(sc, device="cuda")
-    ticks, kept = [], {}
+    ticks, kept, at = [], {}, {}
     real = h.run_tick
 
     def counted(tick, **kw):
@@ -1098,8 +1194,13 @@ def run_sim(kern, smi: str, sc, label: str, keep=(), deadline_s: float | None = 
         # solve count starts from zero
         restarted = h.scheduler is not sched
         solves = h.scheduler.solves_total - (0 if restarted else solves0)
+        meta = h._tick_meta[-1]
         ticks.append(dict(launches=kern.LAUNCHES - before, solves=solves, phases=phases,
-                          restarted=restarted))
+                          restarted=restarted, commits=meta["commits"],
+                          status_rpcs=meta["jobsinfo_calls"], steady=meta["steady"]))
+        if tick == checkpoint:
+            at.update(digest=h._digest.copy().hexdigest(),
+                      final_state_digest=h._final_state_digest(), bound_total=h._bound_total)
         if deadline_s is not None:
             spent = time.perf_counter() - t_built
             require(spent <= deadline_s,
@@ -1114,39 +1215,87 @@ def run_sim(kern, smi: str, sc, label: str, keep=(), deadline_s: float | None = 
         ph = t["phases"]
         log(f"  {label} tick {i}: {ph['tick']:.1f} ms ("
             + ", ".join(f"{k} {ph.get(k, 0.0):.1f}" for k in PHASES)
-            + f" ms), solves {t['solves']}, kernel launches {t['launches']} [{smi}]")
-    return result, ticks, kept, wall_s
+            + f" ms), solves {t['solves']}, kernel launches {t['launches']}, store commits "
+            f"{t['commits']}, JobsInfo calls {t['status_rpcs']}"
+            + (", steady" if t["steady"] else "") + f" [{smi}]")
+    return dict(result=result, ticks=ticks, kept=kept, at=at, wall_s=wall_s, harness=h)
+
+
+def check_steady(label: str, run: dict, sc, want: dict):
+    """The steady ticks of a ``*_steady`` run (:func:`run_sim`): as many
+    as the JAX package's run has, each with no solve, no kernel launch,
+    no store commit and as many ``JobsInfo`` calls as each of the JAX
+    package's, and their tick p50 within the scenario's
+    ``steady_gate_ms``, as ``sim/cli.py`` requires it. Returns the
+    steady ticks' indices and p50."""
+    tm, ticks = run["result"].timing, run["ticks"]
+    steady = [i for i, t in enumerate(ticks) if t["steady"]]
+    p50 = tm["steady_tick_p50_ms"]
+    log(f"  {label}: steady ticks {steady}, steady tick p50 "
+        f"{p50 if p50 is None else round(p50, 3)} ms (the scenario's gate {sc.steady_gate_ms:.0f} "
+        f"ms), JobsInfo calls per steady tick {[ticks[i]['status_rpcs'] for i in steady]}")
+    require(tm["steady_ticks"] == len(steady) == want["steady_ticks"],
+            f"{label}: {tm['steady_ticks']} steady ticks, the JAX package's run "
+            f"{want['steady_ticks']}")
+    for i in steady:
+        t = ticks[i]
+        require(t["solves"] == 0 and t["launches"] == 0 and t["commits"] == 0,
+                f"{label}: steady tick {i} solved {t['solves']} times, launched the kernel "
+                f"{t['launches']} times, committed {t['commits']} writes")
+        require(t["status_rpcs"] == want["steady_jobsinfo_calls"],
+                f"{label}: steady tick {i} made {t['status_rpcs']} JobsInfo calls, the JAX "
+                f"package's {want['steady_jobsinfo_calls']}")
+    require(p50 is not None and p50 <= sc.steady_gate_ms,
+            f"{label}: steady_tick_p50_ms {p50} over the {sc.steady_gate_ms} ms gate")
+    return dict(ticks=steady, p50_ms=p50, gate_ms=sc.steady_gate_ms)
+
+
+def check_checkpoint(label: str, run: dict, want: dict, twin: str) -> None:
+    """A ``*_steady`` run after :data:`STEADY_CHECKPOINT_TICK` against
+    the reference of its 3-tick ``twin``, which ends there."""
+    at = run["at"]
+    log(f"  after tick {STEADY_CHECKPOINT_TICK}: digest {at['digest'][:16]}…, final state "
+        f"{at['final_state_digest'][:16]}…, bound {at['bound_total']}")
+    for key in ("digest", "final_state_digest", "bound_total"):
+        require(at[key] == want[key],
+                f"{label} after tick {STEADY_CHECKPOINT_TICK}: {key} {at[key]} differs from the "
+                f"JAX package's {twin} ({want[key]})")
 
 
 def sim_phase(kern, smi: str) -> dict:
     """Phase 6: the bridge's job lifecycle on the simulated cluster at
-    full width (module docstring). Returns what the kernels line and the
-    summary print."""
+    full width and its steady state (module docstring). Returns what the
+    kernels line and the summary print."""
     import dataclasses
 
     import slurm_bridge_tpu_torch.bridge.vnode as vnode
-    from slurm_bridge_tpu_torch.sim.scenarios import full_50kx10k
+    from slurm_bridge_tpu_torch.sim.scenarios import full_50kx10k, full_50kx10k_steady
     from slurm_bridge_tpu_torch.wire import coldec
 
     require(coldec.available(), "the column decoder's tables do not match the port's schema")
 
     counters = (coldec.rows_counter(), coldec.fallback_counter(), vnode._submit_pool_chunks)
     before = [c.total() for c in counters]
-    pinned = pin_auction(full_50kx10k(scale=1.0))
-    require((pinned.cluster.num_nodes, pinned.workload.jobs, pinned.ticks) == (10_000, 50_000, 3),
-            "full_50kx10k is not at full width")
-    result, ticks, kept, wall_s = run_sim(kern, smi, pinned, "full_50kx10k", keep=(0,))
-    tick0 = kept.get(0, [])
+    pinned = pin_auction(full_50kx10k_steady(scale=1.0))
+    require((pinned.cluster.num_nodes, pinned.workload.jobs, pinned.ticks) == (10_000, 50_000, 6),
+            "full_50kx10k_steady is not at full width")
+    run = run_sim(kern, smi, pinned, "full_50kx10k_steady", keep=(0,),
+                  checkpoint=STEADY_CHECKPOINT_TICK)
+    result, ticks = run["result"], run["ticks"]
+    tick0 = run["kept"].get(0, [])
     rows, fallbacks, pool_chunks = (c.total() - b for c, b in zip(counters, before))
     d = result.determinism
     log(f"  digest {d['digest'][:16]}…, final state {d['final_state_digest'][:16]}…, "
         f"bound {d['bound_total']}, violations {len(d['invariant_violations'])}; "
         f"coldec rows {rows:.0f}, fallbacks {fallbacks:.0f}, pool submit chunks {pool_chunks:.0f}; "
-        f"tick p50 {result.timing['tick_p50_ms']:.1f} ms, phase wall {wall_s:.1f} s [{smi}]")
+        f"tick p50 {result.timing['tick_p50_ms']:.1f} ms, phase wall {run['wall_s']:.1f} s [{smi}]")
     require(d["invariant_violations"] == [], d["invariant_violations"][:3])
+    check_checkpoint("full_50kx10k_steady", run, SIM_REFERENCE, "full_50kx10k")
     for key in ("digest", "final_state_digest", "bound_total"):
-        require(d[key] == SIM_REFERENCE[key],
-                f"full_50kx10k {key} {d[key]} differs from the JAX package's {SIM_REFERENCE[key]}")
+        require(d[key] == SIM_STEADY_REFERENCE[key],
+                f"full_50kx10k_steady {key} {d[key]} differs from the JAX package's "
+                f"{SIM_STEADY_REFERENCE[key]}")
+    steady = check_steady("full_50kx10k_steady", run, pinned, SIM_STEADY_REFERENCE)
     require(rows > 0 and fallbacks == 0, f"the bytes path did not carry the mirror ({rows}, {fallbacks})")
     require(pool_chunks > 0, "no submit chunk went through the forked worker pool")
     require(ticks[0]["solves"] >= 1, "tick 0 did not solve")
@@ -1159,16 +1308,16 @@ def sim_phase(kern, smi: str) -> dict:
         p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
         errs.append(compare_recorded(kern, r, f"sim tick 0 call {j} ({n},{p})"))
 
-    auto, auto_ticks, _, auto_s = run_sim(kern, smi,
-                                          dataclasses.replace(full_50kx10k(scale=1.0), ticks=1),
-                                          "full_50kx10k, backend auto, 1 tick")
-    auto_launches = sum(t["launches"] for t in auto_ticks)
+    auto = run_sim(kern, smi, dataclasses.replace(full_50kx10k(scale=1.0), ticks=1),
+                   "full_50kx10k, backend auto, 1 tick")
+    auto_launches = sum(t["launches"] for t in auto["ticks"])
     require(auto_launches > 0, "the auto-routed run never reached the card")
-    require(auto.determinism["invariant_violations"] == [], "violations in the auto-routed run")
-    log(f"  auto route: kernel launches {auto_launches}, bound {auto.determinism['bound_total']} "
-        f"after 1 tick (the JAX package's native-routed 3-tick run binds {SIM_NATIVE_BOUND}); "
-        f"{auto_s:.1f} s [{smi}]")
-    return dict(result=result, ticks=ticks, errs=errs, wall_s=wall_s,
+    require(auto["result"].determinism["invariant_violations"] == [],
+            "violations in the auto-routed run")
+    log(f"  auto route: kernel launches {auto_launches}, bound "
+        f"{auto['result'].determinism['bound_total']} after 1 tick (the JAX package's "
+        f"native-routed 3-tick run binds {SIM_NATIVE_BOUND}); {auto['wall_s']:.1f} s [{smi}]")
+    return dict(result=result, ticks=ticks, errs=errs, wall_s=run["wall_s"], steady=steady,
                 auto_launches=auto_launches)
 
 
@@ -1181,8 +1330,8 @@ def crash_phase(kern, smi: str) -> dict:
     require((sc.cluster.num_nodes, sc.workload.jobs, sc.ticks) == (10_000, 50_000, 4),
             "full_50kx10k_crash is not at full width")
     crash_tick = sc.faults.faults[0].start_tick
-    result, ticks, kept, wall_s = run_sim(kern, smi, sc, "full_50kx10k_crash",
-                                          keep=range(crash_tick, sc.ticks))
+    run = run_sim(kern, smi, sc, "full_50kx10k_crash", keep=range(crash_tick, sc.ticks))
+    result, ticks, kept, wall_s = run["result"], run["ticks"], run["kept"], run["wall_s"]
     d, tm = result.determinism, result.timing
     log(f"  digest {d['digest'][:16]}…, final state {d['final_state_digest'][:16]}…, "
         f"bound {d['bound_total']}, restarts {d['restarts']}, restored objects "
@@ -1217,18 +1366,21 @@ def crash_phase(kern, smi: str) -> dict:
 
 
 def shard_phase(kern, smi: str, sm_hz: float) -> dict:
-    """Phase 8: the sharded tick at the headline's full size (module
-    docstring); ``sm_hz`` is phase 3's SM clock, for the timed solves'
-    issue ceiling. Returns what the kernels line and the summary print."""
+    """Phase 8: the sharded tick at the headline's full size and its
+    steady state (module docstring); ``sm_hz`` is phase 3's SM clock, for
+    the timed solves' issue ceiling. Returns what the kernels line and
+    the summary print."""
     import resource
 
     import slurm_bridge_tpu_torch.solver.session as session
-    from slurm_bridge_tpu_torch.sim.scenarios import full_500kx100k
+    from slurm_bridge_tpu_torch.sim.scenarios import full_500kx100k, full_500kx100k_steady
 
-    sc = pin_auction(full_500kx100k(scale=1.0))
+    sc = pin_auction(full_500kx100k_steady(scale=1.0))
     require((sc.cluster.num_nodes, sc.cluster.num_partitions, sc.workload.jobs, sc.ticks)
-            == (100_000, 16, 500_000, 3), "full_500kx100k is not at full size")
+            == (100_000, 16, 500_000, 6), "full_500kx100k_steady is not at full size")
     require((sc.sharding.max_nodes_per_shard, sc.sharding.workers) == (8192, 2), sc.sharding)
+    # the 3-tick twin's gates, printed over ticks 0-2 (the twin's ticks)
+    twin = full_500kx100k(scale=1.0)
     solves = []
     real_solve = session.DeviceSolver.solve
 
@@ -1244,8 +1396,8 @@ def shard_phase(kern, smi: str, sm_hz: float) -> dict:
     torch.cuda.reset_peak_memory_stats()
     session.DeviceSolver.solve = timed_solve
     try:
-        result, ticks, kept, wall_s = run_sim(kern, smi, sc, "full_500kx100k", keep=(0,),
-                                              deadline_s=SHARD_DEADLINE_S)
+        run = run_sim(kern, smi, sc, "full_500kx100k_steady", keep=(0,),
+                      deadline_s=SHARD_DEADLINE_S, checkpoint=STEADY_CHECKPOINT_TICK)
     finally:
         session.DeviceSolver.solve = real_solve
     # the main path's launches and memory, read before the checks below
@@ -1253,7 +1405,8 @@ def shard_phase(kern, smi: str, sm_hz: float) -> dict:
     launches = kern.LAUNCHES
     device_peak = torch.cuda.max_memory_allocated()
     host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-    d, tm, fr = result.determinism, result.timing, result.flight_record
+    result, ticks, kept, wall_s = run["result"], run["ticks"], run["kept"], run["wall_s"]
+    d = result.determinism
     shard = d["shard"]
     # tick 0 solves every shard once (every partition holds front-loaded
     # jobs): its solves' node counts are the plan's shard sizes
@@ -1262,21 +1415,32 @@ def shard_phase(kern, smi: str, sm_hz: float) -> dict:
     for i, sv in enumerate(solves):
         log(f"  shard solve {i}: {sv['rows']} rows x {sv['nodes']} nodes, kernel launches "
             f"{sv['launches']}, {sv['ms']:.1f} ms [{smi}]")
-    span, phase_sum = fr.get("tick_span_p50_ms") or 0.0, fr.get("phase_sum_p50_ms") or 0.0
+    first = range(STEADY_CHECKPOINT_TICK + 1)
+    p50_3 = statistics.median(ticks[i]["phases"]["tick"] for i in first)
+    flight = run["harness"].flight
+    span = statistics.median(flight.records[i]["total_ms"] for i in first)
+    phase_sum = statistics.median(sum(flight.phases_ms(flight.records[i]).values()) for i in first)
     drift = abs(span - phase_sum) / span * 100.0 if span > 0 else float("nan")
     log(f"  digest {d['digest'][:16]}…, final state {d['final_state_digest'][:16]}…, "
         f"bound {d['bound_total']}, shards {shard['shard_count']}, reconcile placed "
         f"{shard['reconcile_placed']}, violations {len(d['invariant_violations'])}; tick p50 "
-        f"{tm['tick_p50_ms']:.1f} ms (the scenario's gate {sc.p50_gate_ms:.0f} ms), phase sum "
-        f"{phase_sum:.1f} ms vs tick span {span:.1f} ms p50: drift {drift:.2f} % (gate "
-        f"±{sc.phase_reconcile_pct} %); phase wall {wall_s:.1f} s; device memory peak "
-        f"{device_peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated), host peak RSS "
-        f"{host_peak / 2**20:.0f} MiB [{smi}]")
+        f"over ticks 0-{STEADY_CHECKPOINT_TICK} {p50_3:.1f} ms (full_500kx100k's gate "
+        f"{twin.p50_gate_ms:.0f} ms), phase sum {phase_sum:.1f} ms vs tick span {span:.1f} ms "
+        f"p50: drift {drift:.2f} % (gate ±{twin.phase_reconcile_pct} %); phase wall {wall_s:.1f} "
+        f"s; device memory peak {device_peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated), "
+        f"host peak RSS {host_peak / 2**20:.0f} MiB [{smi}]")
     require(d["invariant_violations"] == [], d["invariant_violations"][:3])
     require(shard["shard_count"] >= 2, f"the plan has {shard['shard_count']} shard(s)")
-    for key, want in SHARD_REFERENCE.items():
-        got = shard[key] if key in shard else d[key]
-        require(got == want, f"full_500kx100k {key} {got} differs from the JAX package's {want}")
+    check_checkpoint("full_500kx100k_steady", run, SHARD_REFERENCE, "full_500kx100k")
+    for key, want in SHARD_STEADY_REFERENCE.items():
+        if not key.startswith("steady_"):
+            got = shard[key] if key in shard else d[key]
+            require(got == want, f"full_500kx100k_steady {key} {got} differs from the JAX "
+                                 f"package's {want}")
+    require(shard["reconcile_placed"] == SHARD_REFERENCE["reconcile_placed"],
+            f"reconcile placed {shard['reconcile_placed']}, full_500kx100k's "
+            f"{SHARD_REFERENCE['reconcile_placed']}")
+    steady = check_steady("full_500kx100k_steady", run, sc, SHARD_STEADY_REFERENCE)
     require(len(solves) >= 2, f"{len(solves)} shard solves")
     require(all(sv["launches"] == ROUNDS for sv in solves),
             f"shard solves launched {[sv['launches'] for sv in solves]} kernels")
@@ -1318,9 +1482,63 @@ def shard_phase(kern, smi: str, sm_hz: float) -> dict:
             f"[{smi}]")
         kernel.append(t)
     return dict(result=result, ticks=ticks, solves=solves, errs=errs, wall_s=wall_s,
-                kernel=kernel, held=held, launches=launches, sizes=sizes,
-                device_peak=device_peak, host_peak=host_peak, drift=drift,
-                p50_gate_ms=sc.p50_gate_ms, drift_gate=sc.phase_reconcile_pct)
+                kernel=kernel, held=held, launches=launches, sizes=sizes, steady=steady,
+                device_peak=device_peak, host_peak=host_peak, drift=drift, p50_3_ms=p50_3,
+                p50_gate_ms=twin.p50_gate_ms, drift_gate=twin.phase_reconcile_pct)
+
+
+def storm_phase(kern, smi: str) -> dict:
+    """Phase 14: the streaming-admission fast path at the headline's
+    cluster width (module docstring). Returns what the kernels line and
+    the summary print."""
+    from slurm_bridge_tpu_torch.sim.cli import ADMISSION_GATES
+    from slurm_bridge_tpu_torch.sim.scenarios import interactive_storm
+
+    sc = pin_auction(interactive_storm(scale=STORM_SCALE))
+    require((sc.cluster.num_nodes, sc.cluster.num_partitions, sc.workload.jobs, sc.ticks)
+            == (9_600, 2, 44_000, 24), "interactive_storm is not at scale 40")
+    require(sc.policy is not None and sc.admission is not None,
+            "interactive_storm runs without its policy or admission config")
+    run = run_sim(kern, smi, sc, "interactive_storm", keep=range(sc.ticks))
+    result, ticks = run["result"], run["ticks"]
+    d, q = result.determinism, result.quality
+    adm = d.get("admission") or {}
+    fast_ms = sorted(run["harness"].quality._fastpath_ms.values())
+    fast_p50, fast_p99 = (float(np.percentile(fast_ms, x)) if fast_ms else float("nan")
+                          for x in (50, 99))
+    log(f"  digest {d['digest'][:16]}…, final state {d['final_state_digest'][:16]}…, "
+        f"bound {d['bound_total']}, violations {len(d['invariant_violations'])}; admission "
+        f"attempts {adm.get('attempts')}, fast binds {adm.get('binds')}, misses by reason "
+        f"{adm.get('misses')}, window re-bases {adm.get('inventory_rebases')}; interactive "
+        f"arrivals {q['interactive_arrivals']}, of them bound on the fast path "
+        f"{q['fastpath_binds']}; arrival-to-bind p50 {q['interactive_latency_p50_ms']} / p99 "
+        f"{q['interactive_latency_p99_ms']} ms (gate {ADMISSION_GATES['p99_ms']} ms); one fast "
+        f"admission's wall p50 {fast_p50:.3f} / p99 {fast_p99:.3f} ms; tick p50 "
+        f"{result.timing['tick_p50_ms']:.1f} ms, phase wall {run['wall_s']:.1f} s [{smi}]")
+    require(d["invariant_violations"] == [], d["invariant_violations"][:3])
+    for key, want in STORM_REFERENCE.items():
+        got = d.get(key, q.get(key))
+        require(got == want, f"interactive_storm {key} {got} differs from the JAX package's {want}")
+    require(q["fastpath_binds"] >= ADMISSION_GATES["min_fastpath_binds"],
+            f"{q['fastpath_binds']} fast-path binds (floor {ADMISSION_GATES['min_fastpath_binds']})")
+    require(adm.get("misses"), "FastPathAdmitter.misses is empty")
+    require(q["interactive_latency_p99_ms"] <= ADMISSION_GATES["p99_ms"],
+            f"interactive p99 {q['interactive_latency_p99_ms']} ms over the "
+            f"{ADMISSION_GATES['p99_ms']} ms gate")
+    for i, t in enumerate(ticks):
+        require(t["launches"] == ROUNDS * t["solves"],
+                f"tick {i}: {t['launches']} kernel launches for {t['solves']} solves")
+    first = next((i for i, t in enumerate(ticks) if t["solves"]), None)
+    require(first is not None, "interactive_storm never solved")
+    calls = run["kept"][first]
+    require(len(calls) == ROUNDS * ticks[first]["solves"],
+            f"{len(calls)} kernel calls kept on tick {first}")
+    errs = []
+    for j, r in enumerate(calls):
+        p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
+        errs.append(compare_recorded(kern, r, f"storm tick {first} call {j} ({n},{p})"))
+    return dict(result=result, ticks=ticks, errs=errs, wall_s=run["wall_s"], first=first,
+                admission=adm, fast_p50_ms=fast_p50, fast_p99_ms=fast_p99)
 
 
 def churn_phase(kern, smi: str) -> dict:
@@ -2206,7 +2424,8 @@ def main() -> int:
     errs += tick["errs"]
 
     # 6. the bridge's job lifecycle on the simulated cluster at full width
-    log("[6] main path: the simulator's full_50kx10k through the port's full bridge loop")
+    log("[6] main path: the simulator's full_50kx10k_steady (full_50kx10k and three more ticks) "
+        "through the port's full bridge loop")
     kern.LAUNCHES = 0
     sim = sim_phase(kern, smi)
     sim_launches = kern.LAUNCHES
@@ -2223,8 +2442,8 @@ def main() -> int:
     errs += crash["errs"]
 
     # 8. the sharded tick: every shard's solve on the kernel
-    log("[8] main path: the simulator's full_500kx100k uncut (100,000 nodes, 500,000 jobs, "
-        "3 ticks) with the shard executor's fan-out")
+    log("[8] main path: the simulator's full_500kx100k_steady uncut (100,000 nodes, 500,000 "
+        "jobs, 6 ticks) with the shard executor's fan-out")
     kern.LAUNCHES = 0
     shard = shard_phase(kern, smi, sm_mhz * 1e6)
     shard_launches = shard["launches"]
@@ -2279,7 +2498,16 @@ def main() -> int:
             f"{baseline_launches} kernel launches in the BASELINE phase's solves")
     errs += base["errs"]
 
-    # 14. the JAX package's result on the reduced scenario
+    # 14. the streaming-admission fast path beside the batch auction
+    log(f"[14] main path: the simulator's interactive_storm at scale {STORM_SCALE} (policy and "
+        "streaming admission on) through the port's full bridge loop")
+    kern.LAUNCHES = 0
+    storm = storm_phase(kern, smi)
+    storm_launches = kern.LAUNCHES
+    require(storm_launches > 0, "no kernel launch in the admission phase")
+    errs += storm["errs"]
+
+    # 15. the JAX package's result on the reduced scenario
     ref_snap, ref_batch = random_scenario(
         REFERENCE["nodes"], REFERENCE["jobs"], seed=42, load=0.7,
         gpu_fraction=0.15, gang_fraction=0.05,
@@ -2290,51 +2518,64 @@ def main() -> int:
     ref_jobs = len(ref_pl.by_job(ref_batch))
     rel = abs(ref_jobs - REFERENCE["placed_jobs"]) / REFERENCE["placed_jobs"]
     match = digest(ref_pl.node_of) == REFERENCE["node_of_sha256"]
-    log(f"[14] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
+    log(f"[15] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
         f"vs JAX {REFERENCE['placed_jobs']} (rel {rel:.5f}); node_of digest matches JAX: {match}")
     require(rel <= 0.005, rel)
 
-    # 15. times
+    # 16. times
     p50 = statistics.median(wall_ms)
-    log(f"[15] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
+    log(f"[16] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
         f"(min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); kernel {kernel_ms:.4f} ms/launch "
         f"(bound {bound_ms:.4f}, ceiling {ceiling_ms:.4f}), {ms_per_solve:.4f} ms per solve; "
         f"total run {time.perf_counter() - t_start:.0f} s")
     for i, t in enumerate(tick["ticks"]):
-        log(f"[15] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
+        log(f"[16] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in t["phase_ms"].items())
             + f"; {t['launches']} kernel launches")
-    for label, run, launches in (("full_50kx10k", sim, sim_launches),
+    for label, run, launches in (("full_50kx10k_steady", sim, sim_launches),
                                  ("full_50kx10k_crash", crash, crash_launches),
-                                 ("full_500kx100k", shard, shard_launches)):
+                                 ("full_500kx100k_steady", shard, shard_launches),
+                                 ("interactive_storm", storm, storm_launches)):
         tm = run["result"].timing
-        log(f"[15] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
+        log(f"[16] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
             + f" (p50 over {len(run['ticks'])} ticks); {launches} kernel launches; "
             f"phase wall {run['wall_s']:.1f} s")
-    log(f"[15] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; full_500kx100k: "
+    for label, run in (("full_50kx10k_steady", sim), ("full_500kx100k_steady", shard)):
+        st = run["steady"]
+        log(f"[16] [{smi}] {label}: steady ticks {st['ticks']}, steady tick p50 {st['p50_ms']:.3f} "
+            f"ms (gate {st['gate_ms']:.0f} ms), each: "
+            + "; ".join(f"tick {i} " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                run["ticks"][i]["phases"].items()) + " ms"
+                        for i in st["ticks"]))
+    log(f"[16] [{smi}] interactive_storm: fast binds {storm['admission']['binds']}, misses "
+        f"{storm['admission']['misses']}, interactive arrival-to-bind p50 "
+        f"{storm['result'].quality['interactive_latency_p50_ms']} / p99 "
+        f"{storm['result'].quality['interactive_latency_p99_ms']} ms, one fast admission's wall "
+        f"p50 {storm['fast_p50_ms']:.3f} / p99 {storm['fast_p99_ms']:.3f} ms")
+    log(f"[16] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; full_500kx100k: "
         f"{len(shard['sizes'])} shards of {shard['sizes']} nodes, shard solves "
         f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms, kernel per solve of tick 0's shard "
         f"solves {shard['held']}: {[round(k['ms_per_solve'], 4) for k in shard['kernel']]} ms; "
-        f"tick p50 {shard['result'].timing['tick_p50_ms']:.1f} ms (gate {shard['p50_gate_ms']:.0f}), "
+        f"tick p50 over ticks 0-2 {shard['p50_3_ms']:.1f} ms (gate {shard['p50_gate_ms']:.0f}), "
         f"phase-sum drift {shard['drift']:.2f} % (gate ±{shard['drift_gate']} %); device memory "
         f"peak {shard['device_peak'] / 2**20:.1f} MiB, host peak RSS "
         f"{shard['host_peak'] / 2**20:.0f} MiB")
-    log(f"[15] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
+    log(f"[16] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
         f"re-solve ms {[round(t['solve_ms'], 1) for t in churn['ticks']]}, "
         f"{churn_launches} kernel launches, kernel {churn['kernel']['ms_per_solve']:.4f} ms per "
         f"solve on churn tick 1; auto route {churn['auto_route']}")
-    log(f"[15] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
+    log(f"[16] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
         f"(solve {[round(t['solve_ms'], 1) for t in sidecar['places']]}), "
         f"{sidecar_launches} kernel launches, kernel {sidecar['kernel']['ms_per_solve']:.4f} ms "
         f"per solve on Place 0")
     tk = daemons["tick"]
-    log(f"[15] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
+    log(f"[16] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
         + ", ".join(f"{k} {v:.1f} ms" for k, v in tk["phase_ms"].items())
         + f"), kernel {daemons['kernel']['ms_per_solve']:.4f} ms over {ROUNDS} launches; "
         f"{BRIDGE['num_jobs']} jobs submit to last Succeeded {daemons['wall_s']:.1f} s; "
         f"{daemons_launches} kernel launches")
-    log(f"[15] [{smi}] multi-device sweep ({SWEEP['dp']}x{SWEEP['mp']} cuda:0 blocks): solve "
+    log(f"[16] [{smi}] multi-device sweep ({SWEEP['dp']}x{SWEEP['mp']} cuda:0 blocks): solve "
         f"wall {[round(w, 1) for w in sweep['walls']]} ms, kernel {sweep['ms_per_solve']:.4f} ms "
         f"per solve over {sweep['solve_launches'][0]} block launches, combine and gathers "
         f"{sum(sweep['combine_ms']):.4f} ms per solve; forced-sharded tick "
@@ -2342,7 +2583,7 @@ def main() -> int:
         f"{[[round(sv['wall_ms'], 1) for sv in rk['solves']] for rk in sweep['ranks']]} ms; "
         f"{sweep_launches} kernel launches")
     c4, c2 = base["config4"], base["config2"]
-    log(f"[15] [{smi}] BASELINE config #4: solve p50 {c4['p50_ms']:.1f} ms, kernel "
+    log(f"[16] [{smi}] BASELINE config #4: solve p50 {c4['p50_ms']:.1f} ms, kernel "
         f"{c4['ms_per_solve']:.4f} ms per solve over {c4['launches_per_solve']} launches "
         f"(bound {c4['solve_bound']:.4f}, ceiling {c4['solve_ceiling']:.4f}), "
         f"{c4['launch_ms']:.4f} ms all-live launch, device memory peak {c4['peak'] / 2**20:.1f} "
@@ -2367,7 +2608,10 @@ def main() -> int:
         "ceiling_ms": ceiling_ms,
         "launches_per_tick": [t["launches"] for t in tick["ticks"]]
         + [t["launches"] for t in sim["ticks"]] + [t["launches"] for t in crash["ticks"]]
-        + [t["launches"] for t in shard["ticks"]],
+        + [t["launches"] for t in shard["ticks"]] + [t["launches"] for t in storm["ticks"]],
+        "launches_per_steady_tick": [sim["ticks"][i]["launches"] for i in sim["steady"]["ticks"]]
+        + [shard["ticks"][i]["launches"] for i in shard["steady"]["ticks"]],
+        "launches_storm_phase": storm_launches,
         "launches_per_shard_solve": [sv["launches"] for sv in shard["solves"]],
         "shard_solves_timed": shard["held"],
         "shard_kernel_ms_per_solve": [k["ms_per_solve"] for k in shard["kernel"]],

@@ -46,6 +46,7 @@ a 409 from the API server (controllers retry via requeue).
 
 from __future__ import annotations
 
+import bisect
 import itertools
 import queue
 import threading
@@ -233,6 +234,16 @@ class ObjectStore:
         #: Pod dirty-set several times per tick, and enumerating a 50k-
         #: name dict per probe was most of a steady tick's residual cost
         self._kind_rv: dict[str, int] = {}
+        #: per-kind write log: each commit's names beside the highest rv
+        #: it assigned and the names logged up to it, covering every
+        #: write after ``_log_floor[kind]``, so ``changes_since`` reads
+        #: the few writes after a recent cursor instead of scanning every
+        #: name the kind ever wrote (a million at the 500k shape, once per
+        #: provider and tick)
+        self._log_rvs: dict[str, list[int]] = {}
+        self._log_names: dict[str, list] = {}
+        self._log_ends: dict[str, list[int]] = {}
+        self._log_floor: dict[str, int] = {}
         self._rv = 0
         #: SimpleQueue, not Queue: put() is C-implemented and lock-free
         #: on the GIL — _notify runs under the store lock for EVERY
@@ -311,6 +322,7 @@ class ObjectStore:
     def _record_change(self, kind: str, name: str) -> None:
         self._changed.setdefault(kind, {})[name] = self._rv
         self._kind_rv[kind] = self._rv
+        self._log_writes(kind, (name,))
         tombs = self._tombstones.get(kind)
         if tombs is not None:
             tombs.pop(name, None)
@@ -707,7 +719,17 @@ class ObjectStore:
                 # before the caller's cursor — nothing to enumerate
                 return rv, [], []
             parts = self._dirty_parts.get(kind)
-            if parts:
+            logged = self._logged_since(kind, since_rv)
+            if logged is not None:
+                # the names written after the cursor that are still
+                # dirty there (a later delete drops a name): the scan
+                # below, restricted to the writes the log holds
+                dirty = [self._changed.get(kind, {}), *(parts or {}).values()]
+                changed = sorted(
+                    n for n in logged
+                    if any(d.get(n, 0) > since_rv for d in dirty)
+                )
+            elif parts:
                 names = {
                     n
                     for n, r in self._changed.get(kind, {}).items()
@@ -730,6 +752,48 @@ class ObjectStore:
                 if r > since_rv
             )
         return rv, changed, deleted
+
+    #: writes a kind's log holds before it is dropped, at least; beyond
+    #: twice the kind's dirty names it is dropped too (``changes_since``
+    #: then scans for a cursor older than the drop)
+    WRITE_LOG_MIN = 65_536
+
+    def _dirty_count(self, kind: str) -> int:
+        return len(self._changed.get(kind, ())) + sum(
+            len(d) for d in self._dirty_parts.get(kind, {}).values()
+        )
+
+    def _log_writes(self, kind: str, names) -> None:
+        """Log one commit's names; the store's rv is their highest."""
+        rvs = self._log_rvs.setdefault(kind, [])
+        batches = self._log_names.setdefault(kind, [])
+        ends = self._log_ends.setdefault(kind, [])
+        size = (ends[-1] if ends else 0) + len(names)
+        if size > self.WRITE_LOG_MIN and size > 2 * self._dirty_count(kind):
+            rvs.clear()
+            batches.clear()
+            ends.clear()
+            self._log_floor[kind] = self._rv
+            return
+        rvs.append(self._rv)
+        batches.append(names)
+        ends.append(size)
+
+    def _logged_since(self, kind: str, since_rv: int) -> set[str] | None:
+        """Every name written after ``since_rv`` (some written before it
+        too), or None when the log does not reach back that far or when
+        so much of the kind moved that the scan reads less."""
+        if since_rv < self._log_floor.get(kind, 0):
+            return None
+        ends = self._log_ends.get(kind, [])
+        start = bisect.bisect_right(self._log_rvs.get(kind, []), since_rv)
+        tail = (ends[-1] - (ends[start - 1] if start else 0)) if ends else 0
+        if 8 * tail > self._dirty_count(kind):
+            return None
+        names: set[str] = set()
+        for batch in self._log_names.get(kind, [])[start:]:
+            names.update(batch)
+        return names
 
     def has_partitioned_dirty(self, kind: str) -> bool:
         """True when ``kind`` has any per-partition dirty records — the
@@ -865,6 +929,7 @@ class ObjectStore:
             )
             changed.update(zip(names_sel, new_rvs.tolist()))
             self._kind_rv[kind] = self._rv
+            self._log_writes(kind, names_sel)
             if tombs:
                 for name in names_sel:
                     tombs.pop(name, None)
@@ -955,6 +1020,7 @@ class ObjectStore:
                     )
                     dirty.update(zip(names_sel, new_rvs.tolist()))
                     self._kind_rv[kind] = self._rv
+                    self._log_writes(kind, names_sel)
                     if tombs:
                         for name in names_sel:
                             tombs.pop(name, None)
@@ -1019,6 +1085,7 @@ class ObjectStore:
                 self._index_add_node(kind, name, adapter.node_value(table, row))
             changed.update(zip(names_sel, new_rvs.tolist()))
             self._kind_rv[kind] = self._rv
+            self._log_writes(kind, names_sel)
             if tombs:
                 for name in names_sel:
                     tombs.pop(name, None)

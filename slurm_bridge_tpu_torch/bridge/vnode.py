@@ -256,6 +256,11 @@ _INFO_DIFF_FIELDS: tuple[str, ...] = tuple(
 #: per-RPC latency a serial agent-side handler can accumulate
 _BULK_CHUNK = 2000
 
+#: JobsInfo answers up to this size decode inline rather than in the
+#: worker pool: a version field alone (the chunk unchanged since the
+#: cursor) is at most 11 bytes
+_INLINE_DECODE_BYTES = 16
+
 #: requests per SubmitJobs batch — much smaller than _BULK_CHUNK because
 #: each request carries a whole sbatch script (KBs, not an int64): 512 ×
 #: an 8 KB script stays safely inside gRPC's 4 MB default message cap
@@ -391,6 +396,9 @@ class VirtualNodeProvider:
         #: job ids a status response has actually been APPLIED for — the
         #: cursor is only trusted for these; anything else queries full
         self._applied_ids: set[int] = set()
+        #: the working set ``_applied_ids`` was last built from: a cursor
+        #: pass over the same cache re-applies the same ids
+        self._applied_mc: _MirrorCache | None = None
         self._nodes_cursor = 0
         self._nodes_cache: list[NodeInfo] | None = None
         self._nodes_req: object | None = None
@@ -582,7 +590,9 @@ class VirtualNodeProvider:
             except RpcError as e:
                 results[i] = ("rpc", e)
                 return
-            if pool is not None:
+            if pool is not None and len(raw) > _INLINE_DECODE_BYTES:
+                # an answer with no entry (the chunk unchanged since the
+                # cursor) decodes here: cheaper than the pool round trips
                 results[i] = ("raw", raw)
                 return
             try:
@@ -1133,6 +1143,11 @@ class VirtualNodeProvider:
                     continue  # another provider's pod: not our work
                 i = idx_of.get(name)
                 if i is None:
+                    if c.role[row] != PodRole.SIZECAR and not c.deleted[row]:
+                        # a worker pod here: never submitted, mirrored
+                        # or deleted by this provider, so the full
+                        # classification would not see it either
+                        continue
                     return False  # new pod here: converge/classify
                 if (
                     c.deleted[row]
@@ -1739,7 +1754,9 @@ class VirtualNodeProvider:
         else:
             span.count("writes", 0)
         self._jobs_cursor = new_cursor
-        self._applied_ids = set(mc.ids)
+        if mc is not self._applied_mc:
+            self._applied_ids = set(mc.ids)
+            self._applied_mc = mc
         # every id in the working set is now applied: later passes over
         # the SAME cache must query every chunk at the cursor — leaving a
         # tail chunk flagged "full" would re-deliver its ~2000 unchanged

@@ -30,7 +30,110 @@ ALLOWED = {
     # the two lazy ``wire.coldec`` imports (the vnode raw-bytes mirror)
     # point at the port's future module
     "bridge/columns.py": [],
-    "bridge/store.py": [],
+    # changes_since reads the writes after its cursor from a write log
+    # (PERF.md §5): the steady tick's dirty-set probes were O(names ever
+    # written), a million at the 500k shape, once per provider and tick
+    "bridge/store.py": [
+        ('import itertools\n',
+         'import bisect\n'
+         'import itertools\n'),
+        ('        self._rv = 0\n',
+         "        #: per-kind write log: each commit's names beside the highest rv\n"
+         '        #: it assigned and the names logged up to it, covering every\n'
+         '        #: write after ``_log_floor[kind]``, so ``changes_since`` reads\n'
+         '        #: the few writes after a recent cursor instead of scanning every\n'
+         '        #: name the kind ever wrote (a million at the 500k shape, once per\n'
+         '        #: provider and tick)\n'
+         '        self._log_rvs: dict[str, list[int]] = {}\n'
+         '        self._log_names: dict[str, list] = {}\n'
+         '        self._log_ends: dict[str, list[int]] = {}\n'
+         '        self._log_floor: dict[str, int] = {}\n'
+         '        self._rv = 0\n'),
+        ('        tombs = self._tombstones.get(kind)\n'
+         '        if tombs is not None:\n',
+         '        self._log_writes(kind, (name,))\n'
+         '        tombs = self._tombstones.get(kind)\n'
+         '        if tombs is not None:\n'),
+        ('            if parts:\n',
+         '            logged = self._logged_since(kind, since_rv)\n'
+         '            if logged is not None:\n'
+         '                # the names written after the cursor that are still\n'
+         '                # dirty there (a later delete drops a name): the scan\n'
+         '                # below, restricted to the writes the log holds\n'
+         '                dirty = [self._changed.get(kind, {}), *(parts or {}).values()]\n'
+         '                changed = sorted(\n'
+         '                    n for n in logged\n'
+         '                    if any(d.get(n, 0) > since_rv for d in dirty)\n'
+         '                )\n'
+         '            elif parts:\n'),
+        ('\n'
+         '    def has_partitioned_dirty(self, kind: str) -> bool:\n',
+         '\n'
+         "    #: writes a kind's log holds before it is dropped, at least; beyond\n"
+         "    #: twice the kind's dirty names it is dropped too (``changes_since``\n"
+         '    #: then scans for a cursor older than the drop)\n'
+         '    WRITE_LOG_MIN = 65_536\n'
+         '\n'
+         '    def _dirty_count(self, kind: str) -> int:\n'
+         '        return len(self._changed.get(kind, ())) + sum(\n'
+         '            len(d) for d in self._dirty_parts.get(kind, {}).values()\n'
+         '        )\n'
+         '\n'
+         '    def _log_writes(self, kind: str, names) -> None:\n'
+         '        """Log one commit\'s names; the store\'s rv is their highest."""\n'
+         '        rvs = self._log_rvs.setdefault(kind, [])\n'
+         '        batches = self._log_names.setdefault(kind, [])\n'
+         '        ends = self._log_ends.setdefault(kind, [])\n'
+         '        size = (ends[-1] if ends else 0) + len(names)\n'
+         '        if size > self.WRITE_LOG_MIN and size > 2 * self._dirty_count(kind):\n'
+         '            rvs.clear()\n'
+         '            batches.clear()\n'
+         '            ends.clear()\n'
+         '            self._log_floor[kind] = self._rv\n'
+         '            return\n'
+         '        rvs.append(self._rv)\n'
+         '        batches.append(names)\n'
+         '        ends.append(size)\n'
+         '\n'
+         '    def _logged_since(self, kind: str, since_rv: int) -> set[str] | None:\n'
+         '        """Every name written after ``since_rv`` (some written before it\n'
+         '        too), or None when the log does not reach back that far or when\n'
+         '        so much of the kind moved that the scan reads less."""\n'
+         '        if since_rv < self._log_floor.get(kind, 0):\n'
+         '            return None\n'
+         '        ends = self._log_ends.get(kind, [])\n'
+         '        start = bisect.bisect_right(self._log_rvs.get(kind, []), since_rv)\n'
+         '        tail = (ends[-1] - (ends[start - 1] if start else 0)) if ends else 0\n'
+         '        if 8 * tail > self._dirty_count(kind):\n'
+         '            return None\n'
+         '        names: set[str] = set()\n'
+         '        for batch in self._log_names.get(kind, [])[start:]:\n'
+         '            names.update(batch)\n'
+         '        return names\n'
+         '\n'
+         '    def has_partitioned_dirty(self, kind: str) -> bool:\n'),
+        ('            if tombs:\n'
+         '                for name in names_sel:\n'
+         '                    tombs.pop(name, None)\n'
+         '            # per-queue event order matches the per-name loop (queues are\n',
+         '            self._log_writes(kind, names_sel)\n'
+         '            if tombs:\n'
+         '                for name in names_sel:\n'
+         '                    tombs.pop(name, None)\n'
+         '            # per-queue event order matches the per-name loop (queues are\n'),
+        ('                    if tombs:\n',
+         '                    self._log_writes(kind, names_sel)\n'
+         '                    if tombs:\n'),
+        ('            if tombs:\n'
+         '                for name in names_sel:\n'
+         '                    tombs.pop(name, None)\n'
+         '            for q, kinds in self._watchers_snapshot:\n',
+         '            self._log_writes(kind, names_sel)\n'
+         '            if tombs:\n'
+         '                for name in names_sel:\n'
+         '                    tombs.pop(name, None)\n'
+         '            for q, kinds in self._watchers_snapshot:\n'),
+    ],
     "policy/classes.py": [],
     "policy/fairshare.py": [],
     "policy/engine.py": [],
@@ -173,6 +276,42 @@ ALLOWED = {
          "from slurm_bridge_tpu_torch.wire import RpcError, ServiceClient, StatusCode, pb\n"),
         ("grpc.RpcError", "RpcError", 10),
         ("grpc.StatusCode", "StatusCode", 15),
+        # the steady tick's mirror on the card's host (PERF.md §5): a
+        # version-only JobsInfo answer decodes inline, not through the
+        # worker pool ...
+        ("#: requests per SubmitJobs batch",
+         "#: JobsInfo answers up to this size decode inline rather than in the\n"
+         "#: worker pool: a version field alone (the chunk unchanged since the\n"
+         "#: cursor) is at most 11 bytes\n"
+         "_INLINE_DECODE_BYTES = 16\n\n"
+         "#: requests per SubmitJobs batch"),
+        ("            if pool is not None:\n"
+         "                results[i] = (\"raw\", raw)\n",
+         "            if pool is not None and len(raw) > _INLINE_DECODE_BYTES:\n"
+         "                # an answer with no entry (the chunk unchanged since the\n"
+         "                # cursor) decodes here: cheaper than the pool round trips\n"
+         "                results[i] = (\"raw\", raw)\n"),
+        # ... a changed worker pod on the node keeps the scoped rescan ...
+        ("                if i is None:\n"
+         "                    return False  # new pod here: converge/classify\n",
+         "                if i is None:\n"
+         "                    if c.role[row] != PodRole.SIZECAR and not c.deleted[row]:\n"
+         "                        # a worker pod here: never submitted, mirrored\n"
+         "                        # or deleted by this provider, so the full\n"
+         "                        # classification would not see it either\n"
+         "                        continue\n"
+         "                    return False  # new pod here: converge/classify\n"),
+        # ... and a cursor pass over the same working set keeps its
+        # applied-id set instead of rebuilding it
+        ("        self._applied_ids: set[int] = set()\n",
+         "        self._applied_ids: set[int] = set()\n"
+         "        #: the working set ``_applied_ids`` was last built from: a cursor\n"
+         "        #: pass over the same cache re-applies the same ids\n"
+         "        self._applied_mc: _MirrorCache | None = None\n"),
+        ("        self._applied_ids = set(mc.ids)\n",
+         "        if mc is not self._applied_mc:\n"
+         "            self._applied_ids = set(mc.ids)\n"
+         "            self._applied_mc = mc\n"),
     ],
     "bridge/configurator.py": [],
     "obs/flight.py": [],

@@ -25,7 +25,14 @@ recovery times and WAL counts; a sharded scenario runs every shard on
 the single-device auction (``ShardConfig(device_solve=False)``: the JAX
 package would take its ``shard_map`` route on a host with several
 devices, and the port on its one card would not) and adds the plan's
-shard count and the cross-shard reconcile count.
+shard count and the cross-shard reconcile count. Every run prints its
+``steady_ticks``, ``steady_tick_p50_ms`` and each tick's record (arrived,
+bound, solves, store commits, ``JobsInfo`` calls, the steady verdict and
+the tick's ms); a ``*_steady`` scenario adds ``tick2``, its trace digest
+and ``final_state_digest`` after tick 2 (the end of its 3-tick twin's
+run); a scenario with streaming admission adds the admitter's attempts,
+binds and misses by reason, the fast-path binds and the interactive
+arrival-to-bind p50 and p99.
 
 ``--churn``: runs the JAX package's streaming reschedule at
 chip_smoke.py's ``CHURN`` shape (BASELINE config #5: ``churn_scenario(
@@ -90,6 +97,9 @@ sweep and BASELINE-config runs on the card to these numbers.
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k_crash
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_500kx100k
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k_steady
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_500kx100k_steady
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim interactive_storm --scale 40
     JAX_PLATFORMS=cpu python tools/port_reference.py --churn
     JAX_PLATFORMS=cpu python tools/port_reference.py --place --nodes 10000 --jobs 50000
     JAX_PLATFORMS=cpu python tools/port_reference.py --bridge
@@ -127,6 +137,7 @@ from chip_smoke import (  # noqa: E402
     BRIDGE,
     CHURN,
     CHURN_TICKS,
+    STEADY_CHECKPOINT_TICK,
     InventoryClient,
     bridge_first_tick,
     bridge_inventory,
@@ -147,6 +158,9 @@ from slurm_bridge_tpu.solver.snapshot import random_scenario  # noqa: E402
 
 #: the scenario's shape beyond node and job counts
 SCENARIO = dict(load=0.7, gpu_fraction=0.15, gang_fraction=0.05)
+#: ``--sim``: what each tick's record prints
+TICK_FIELDS = ("tick", "arrived", "bound", "solves", "commits", "jobsinfo_calls", "steady",
+               "tick_ms")
 
 
 def run_ticks(num_nodes: int, num_jobs: int, seed: int, ticks: int = 2,
@@ -186,7 +200,7 @@ def run_ticks(num_nodes: int, num_jobs: int, seed: int, ticks: int = 2,
 def run_sim(name: str, scale: float) -> dict:
     import dataclasses
 
-    from slurm_bridge_tpu.sim.harness import run_scenario
+    from slurm_bridge_tpu.sim.harness import SimHarness
     from slurm_bridge_tpu.sim.scenarios import SCENARIOS
 
     sc = dataclasses.replace(
@@ -199,8 +213,22 @@ def run_sim(name: str, scale: float) -> dict:
             sc, sharding=dataclasses.replace(sc.sharding, device_solve=False)
         )
         config += f", {sc.sharding}"
+    h = SimHarness(sc)
+    at_tick2 = {}
+    real_tick = h.run_tick
+
+    def run_tick(tick, **kw):
+        phases = real_tick(tick, **kw)
+        if tick == STEADY_CHECKPOINT_TICK and name.endswith("_steady"):
+            # the running trace digest and the state after tick 2: what
+            # the 3-tick scenario's run ends with
+            at_tick2.update(digest=h._digest.copy().hexdigest(),
+                            final_state_digest=h._final_state_digest())
+        return phases
+
+    h.run_tick = run_tick
     t0 = time.perf_counter()
-    r = run_scenario(sc)
+    r = h.run()
     d = r.determinism
     out = {
         "sim": name, "scale": scale, "config": config,
@@ -213,7 +241,19 @@ def run_sim(name: str, scale: float) -> dict:
         "cpu_seconds_wall": round(time.perf_counter() - t0, 3),
         "tick_p50_ms": r.timing["tick_p50_ms"],
         "phases_p50_ms": r.timing["phases_p50_ms"],
+        "steady_ticks": r.timing["steady_ticks"],
+        "steady_tick_p50_ms": r.timing["steady_tick_p50_ms"],
+        "ticks": [{k: m[k] for k in TICK_FIELDS} for m in h._tick_meta],
     }
+    if at_tick2:
+        out["tick2"] = at_tick2
+    if "admission" in d:
+        q = r.quality
+        out["admission"] = dict(
+            d["admission"], interactive_arrivals=q["interactive_arrivals"],
+            fastpath_binds=q["fastpath_binds"],
+            interactive_latency_p50_ms=q["interactive_latency_p50_ms"],
+            interactive_latency_p99_ms=q["interactive_latency_p99_ms"])
     if d["restarts"]:
         out.update(restarts=d["restarts"], restored_objects=d["restored_objects"],
                    recovery_ms=r.timing["recovery_ms"],
