@@ -4,7 +4,8 @@ placement tick, the bridge's job lifecycle on the simulated cluster and
 its steady state, its recovery from a crash, the sharded tick and its
 steady state, the streaming reschedule, the placement-solver sidecar, the
 bridge's daemons, the multi-device sweep, the BASELINE configs #2 and #4
-and the sampled auction path, and the streaming-admission fast path.
+and the sampled auction path, the streaming-admission fast path, and the
+policy tick with preemption (the placement-quality scenarios).
 
     python3 chip_smoke.py
 
@@ -146,8 +147,8 @@ which fails the run:
     ``Bridge(scheduler_backend="auction", AuctionConfig(rounds=8,
     candidates=0), kubelet_port=0)`` reaching it over a
     :class:`LoopbackChannel` (the card's machine has no ``grpc``; every
-    request and response crosses as codec bytes). :data:`BRIDGE`'s 120
-    jobs (the headline's first 120 demands, :func:`bridge_inventory`) go
+    request and response crosses as codec bytes). :data:`BRIDGE`'s 60
+    jobs (the headline's first 60 demands, :func:`bridge_inventory`) go
     in through ``Bridge.submit``, each script echoing its marker; once every
     sizecar pod exists one scheduler tick places them on the card
     (:func:`bridge_first_tick`): 8 kernel launches, each held bit-exact
@@ -214,12 +215,42 @@ which fails the run:
     its measured wall time, a batch bind half a tick period or more);
     every solving tick launches the kernel 8 times per solve, and each
     kernel call of the first solving tick is held bit-exact against its
-    plain version on its own operands. Prints each tick's phases, the
-    fast binds and misses by reason, and the p50 and p99 of one fast
-    admission's wall time;
-15. hold the card against the JAX package's result on a reduced scenario
+    plain version on its own operands. Then its admission-off twin
+    (``admission=None``): digests, bound, scorecard and utilization equal
+    to the JAX package's twin (:data:`STORM_OFF_REFERENCE`), 8 launches
+    per solve, batch utilization within ``ADMISSION_GATES["util_margin"]``
+    of the on arm's (required where the JAX package's arms hold it) and
+    a half tick period over the latency gate, as ``_admission`` requires.
+    Prints each tick's phases, the fast binds and misses by reason, the
+    p50 and p99 of one fast admission's wall time, and the twin's
+    utilization beside the on arm's p99;
+15. the policy tick with preemption at the headline's cluster width:
+    ``sim/cli.py``'s quality scenarios (:data:`QUALITY_CELLS`) —
+    ``priority_inversion`` at 80 (9,600 nodes, batch incumbents, a
+    production gang storm at tick 5, ``preemption=True``) on, policy off
+    and with the full tick; ``multi_tenant_storm`` at 40 (four tenants,
+    48,000 front-loaded jobs) on and policy off; ``diurnal_load`` at 10
+    (1,200 nodes; its own 2-round auction without repair) on, policy off
+    and backfill off (both cut for the run's time); ``elastic_resize`` at
+    33 (9,900 nodes, two resize windows) — each with the pinned engine
+    (``diurnal_load``: its own auction, ``candidates=0``).
+    Every arm's ``digest``, ``final_state_digest``, ``bound_total``,
+    ``preempted_total``, events, restarts, per-tick solves and scorecard
+    (without wall-clock latencies) must equal the JAX package's run of the
+    same arm (:data:`QUALITY_REFERENCE`), with no invariant violated; every
+    solving tick launches the kernel as many times per solve as the
+    auction has rounds; each kernel call of ``priority_inversion``'s first
+    solving tick from the storm on and of ``diurnal_load``'s first solving
+    tick is held bit-exact against its plain version on its own operands;
+    the full tick equals the incremental one in digests and scorecard.
+    ``QUALITY_GATES`` apply as ``_quality`` applies them
+    (:func:`quality_gates`): each gate the JAX package's run holds must
+    hold; each it misses is printed beside its values. Prints each arm's
+    ticks and phases, preempted, backfill binds, Jain, utilization, class
+    wait p95, kernel launches, calls compared and wall time;
+16. hold the card against the JAX package's result on a reduced scenario
     (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
-16. print times with the card's name and power limit, and the run's wall
+17. print times with the card's name and power limit, and the run's wall
     time.
 
 The second-to-last lines are the kernels' JSON record and the
@@ -346,8 +377,9 @@ STORM_SCALE = 40
 #: auction pinned, on the CPU, from ``JAX_PLATFORMS=cpu python
 #: tools/port_reference.py --sim interactive_storm --scale 40`` (47.2 s
 #: wall and 1,383 MiB peak RSS on an 8-core host): digests, bound, the
-#: admitter's decision counts and the interactive arrivals and fast binds
-#: the latency gate reads.
+#: admitter's decision counts, the interactive arrivals and fast binds
+#: the latency gate reads, and the batch utilization its admission-off
+#: twin is held to.
 STORM_REFERENCE = dict(
     digest="f6d27152792f11aa1d58c28432e4b06a1987966b3caf7422c3a04824fd64aae9",
     final_state_digest="d69e93035130cec47d1a955de29f81c1f40d731fc088f36e98da5bbb575754a1",
@@ -355,6 +387,156 @@ STORM_REFERENCE = dict(
     admission=dict(attempts=13196, binds=12393, misses={"not_ready": 803}, inventory_rebases=18),
     interactive_arrivals=10959,
     fastpath_binds=10959,
+    utilization_mean=0.2367,
+)
+#: The arms a scenario runs under (:func:`arm_scenario`): as defined, its
+#: policy off, its backfill alone off, its streaming admission off, and the
+#: full (non-incremental) tick.
+QUALITY_ARMS = ("on", "policy_off", "backfill_off", "admission_off", "full_tick")
+#: Phase [15]'s cells: ``sim/cli.py``'s quality scenarios, with the arms
+#: their gates compare, at the headline's cluster width where the run's
+#: time allows it. ``hold_from``: the on arm's first solving tick from that
+#: tick on has each kernel call held against the plain version
+#: (``priority_inversion``'s production gang storm arrives at tick 5).
+QUALITY_CELLS = dict(
+    priority_inversion=dict(scale=80, arms=("on", "policy_off", "full_tick"), hold_from=5),
+    # the next two cut for the run's 1,200 s (PERF.md §4): at 80 and 40 the
+    # phase took 638 s with an NVIDIA H100 80GB HBM3 at 700 W, at 80 and 20
+    # 436 s, and the whole run 1,303 s; the JAX package's gate verdicts are
+    # the same at the cut scales (4,800 and 1,200 nodes)
+    multi_tenant_storm=dict(scale=40, arms=("on", "policy_off")),
+    diurnal_load=dict(scale=10, arms=("on", "policy_off", "backfill_off"), hold_from=0),
+    elastic_resize=dict(scale=33, arms=("on",)),
+)
+#: The JAX package's simulator on each arm of :data:`QUALITY_CELLS` at its
+#: scale, with the engine pinned as :func:`pin_auction` pins it, on the
+#: CPU, from ``JAX_PLATFORMS=cpu python tools/port_reference.py --sim NAME
+#: --scale S --arm ARM`` (wall time and peak RSS beside each, three runs at
+#: a time on an 8-core host): digests, bound, preempted, restarts, the
+#: events' and the scorecard's digests (:func:`json_digest`,
+#: :func:`virtual_scorecard`), the shape, each tick's solves and the
+#: scorecard numbers the gates read (:func:`quality_summary`).
+QUALITY_REFERENCE = {
+    # --sim priority_inversion --scale 80 --arm on: 57.669 s, 4,120 MiB
+    "priority_inversion/on": dict(
+        digest="931d4d30dd4b498cf9b12d9876a7ad4004741482d9b9a1c2aa1bf667b7ebc03e",
+        final_state_digest="493ccf8255df485e9bc1c1e8697cdec1412cdf576731ccb256da469eae14a328",
+        events_sha256="a7d04085306f8ed0dc1cc7f64fabe4c9b5859fd3a197f532f0f569486e961800",
+        scorecard_sha256="7051d1baa30bf30a33e5f9d8d07d7ba9ad2a606943e10a5df9f9a659af880066",
+        bound_total=37634, preempted_total=41, restarts=0,
+        shape=dict(pods=41280, nodes=9600, partitions=4, ticks=14),
+        solves=[1, 0, 1, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+        quality=dict(utilization_mean=0.864, jain_fairness=1.0, production_wait_p95=9.0,
+                     gang_wait_p95_ticks=9.0, preempted_total=41, backfill_binds=0, resizes=0,
+                     unbound_final=3663, drained_at_tick=None, recovery_ticks=None)),
+    # --sim priority_inversion --scale 80 --arm policy_off: 98.632 s, 4,866 MiB
+    "priority_inversion/policy_off": dict(
+        digest="d1023354721969237fdfc0754f2c80678a024f412d2b8d87c589609bce8e0955",
+        final_state_digest="a1313d76bee5d534d4d4ed55bbc1c437b238e4342ae38b4c15ccc431abf7dcea",
+        events_sha256="0f2865d97c5de022de8c8fe7bc6c618364b2ba0f479cb7b939502d5d3f530bd3",
+        scorecard_sha256="17ab5850010c6092facfd2cbdb8bcb48ca81c09e69b1d0b3d6bc622d71b4553d",
+        bound_total=40307, preempted_total=2594, restarts=0,
+        shape=dict(pods=41280, nodes=9600, partitions=4, ticks=14),
+        solves=[1, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+        quality=dict(utilization_mean=0.8698, jain_fairness=1.0, production_wait_p95=9.0,
+                     gang_wait_p95_ticks=9.0, preempted_total=2594, backfill_binds=None, resizes=0,
+                     unbound_final=2576, drained_at_tick=None, recovery_ticks=None)),
+    # --sim priority_inversion --scale 80 --arm full_tick: 66.386 s, 4,138 MiB
+    "priority_inversion/full_tick": dict(
+        digest="931d4d30dd4b498cf9b12d9876a7ad4004741482d9b9a1c2aa1bf667b7ebc03e",
+        final_state_digest="493ccf8255df485e9bc1c1e8697cdec1412cdf576731ccb256da469eae14a328",
+        events_sha256="013d31fcc965a18d1e8478a9d5a32710125b9fac7019fde53afeb7bbebcbda55",
+        scorecard_sha256="7051d1baa30bf30a33e5f9d8d07d7ba9ad2a606943e10a5df9f9a659af880066",
+        bound_total=37634, preempted_total=41, restarts=0,
+        shape=dict(pods=41280, nodes=9600, partitions=4, ticks=14),
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+        quality=dict(utilization_mean=0.864, jain_fairness=1.0, production_wait_p95=9.0,
+                     gang_wait_p95_ticks=9.0, preempted_total=41, backfill_binds=0, resizes=0,
+                     unbound_final=3663, drained_at_tick=None, recovery_ticks=None)),
+    # --sim multi_tenant_storm --scale 40 --arm on: 24.214 s, 2,788 MiB
+    "multi_tenant_storm/on": dict(
+        digest="b5c9b712771905cd25dbdc280366a43fad8842029ab47f5090269161a64be0bf",
+        final_state_digest="fa2144b9129772dd8384fefca13ed85bb16c4939c40ff2138a3c5bc75bcd1738",
+        events_sha256="3dfe85ffad279bb6c7b9cc5de910d8653366b617f5a4dc5b8d4cf8dba89d1c0a",
+        scorecard_sha256="0028a7e6d128b41f4c806a4d5c496fba46da8f4486233025d3c310b6e419035e",
+        bound_total=10634, preempted_total=0, restarts=0,
+        shape=dict(pods=48000, nodes=4800, partitions=4, ticks=10),
+        solves=[1, 0, 1, 0, 0, 0, 0, 0, 0, 0],
+        quality=dict(utilization_mean=0.8479, jain_fairness=0.9998, production_wait_p95=None,
+                     gang_wait_p95_ticks=0.0, preempted_total=0, backfill_binds=0, resizes=0,
+                     unbound_final=37366, drained_at_tick=None, recovery_ticks=None)),
+    # --sim multi_tenant_storm --scale 40 --arm policy_off: 20.315 s, 2,798 MiB
+    "multi_tenant_storm/policy_off": dict(
+        digest="3a6bbf063d8343eb50c15a053120aa47d873b99c11efd9f21f3b737d6c090fc3",
+        final_state_digest="ca1dae9de9b54c8b7374a67dd5375b866955b898a55908f3d29ba85bcb099553",
+        events_sha256="ef70cc1d0802cf19e32b58510d7b096bb5f9dc211e70195ed0bee1d655ed7f7a",
+        scorecard_sha256="44c9bca6f99c640466eee97ccb71d985364a011b7dfdfa5eb382a05d408a39ef",
+        bound_total=10727, preempted_total=0, restarts=0,
+        shape=dict(pods=48000, nodes=4800, partitions=4, ticks=10),
+        solves=[1, 0, 1, 0, 0, 0, 0, 0, 0, 0],
+        quality=dict(utilization_mean=0.8505, jain_fairness=0.3623, production_wait_p95=None,
+                     gang_wait_p95_ticks=0.0, preempted_total=0, backfill_binds=None, resizes=0,
+                     unbound_final=37273, drained_at_tick=None, recovery_ticks=None)),
+    # --sim diurnal_load --scale 10 --arm on: 21.671 s, 765 MiB
+    "diurnal_load/on": dict(
+        digest="32dac1976e8f632bdd1d71ac814143258d4d27a7a953ba8f1d41d12ce12d26fe",
+        final_state_digest="6b38a4dc7f740d6c0eb58ced9f1e06508a370ca162f02703b4d993128d4e215d",
+        events_sha256="c2ff1feb989e1ca5647a6a2864d8f01f766659ec58c5e326952756cefdeab41f",
+        scorecard_sha256="eb1abc120ae5ab5a26d432973e98e917e10543865d474de0ca2401343d3cb3c1",
+        bound_total=13840, preempted_total=0, restarts=0,
+        shape=dict(pods=14880, nodes=1200, partitions=4, ticks=24),
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+        quality=dict(utilization_mean=0.4771, jain_fairness=1.0, production_wait_p95=None,
+                     gang_wait_p95_ticks=15.0, preempted_total=0, backfill_binds=792, resizes=0,
+                     unbound_final=1040, drained_at_tick=None, recovery_ticks=None)),
+    # --sim diurnal_load --scale 10 --arm policy_off: 20.342 s, 765 MiB
+    "diurnal_load/policy_off": dict(
+        digest="99b28aa84a4f87d09e19f9da8c2549348fc77446e8e6f0dfac498036ca1d12ec",
+        final_state_digest="505d1ca230ecc4f6e1ef847a31cdee8cdaa7e177a5a6013fd6cb46df9518f84e",
+        events_sha256="69aa523f08f426f92589cea1f42b6f44e2d5973319f98b8439dddbecc188cb0a",
+        scorecard_sha256="eeea5abf0291f059454e8632cedfad860d15273658f60a214106823d9b2ff10f",
+        bound_total=13773, preempted_total=0, restarts=0,
+        shape=dict(pods=14880, nodes=1200, partitions=4, ticks=24),
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+        quality=dict(utilization_mean=0.477, jain_fairness=1.0, production_wait_p95=None,
+                     gang_wait_p95_ticks=15.0, preempted_total=0, backfill_binds=None, resizes=0,
+                     unbound_final=1107, drained_at_tick=None, recovery_ticks=None)),
+    # --sim diurnal_load --scale 10 --arm backfill_off: 20.934 s, 773 MiB
+    "diurnal_load/backfill_off": dict(
+        digest="d1a74c2443e9a88cdb2ef15ed7c20ec26fccea427a8c8eb5efd22b3ecf634bde",
+        final_state_digest="15104e857000801d97cd4a1f6383359bcd80192aa4d77b4950fb6d175688d540",
+        events_sha256="6c75dc073eec89071c8f8e9028696fefb25b9dbb722d0c53b81e35f164bcaa45",
+        scorecard_sha256="75f72dbea626d9d01d27220d6dcb4d740f675c7d4b04ac6bd70cb62cbaef0dce",
+        bound_total=13755, preempted_total=0, restarts=0,
+        shape=dict(pods=14880, nodes=1200, partitions=4, ticks=24),
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+        quality=dict(utilization_mean=0.4769, jain_fairness=1.0, production_wait_p95=None,
+                     gang_wait_p95_ticks=15.0, preempted_total=0, backfill_binds=0, resizes=0,
+                     unbound_final=1125, drained_at_tick=None, recovery_ticks=None)),
+    # --sim elastic_resize --scale 33 --arm on: 34.798 s, 1,536 MiB
+    "elastic_resize/on": dict(
+        digest="e0a32e6e5cd458fa34474cca319a0bd000a06669f4987305282d59829493565e",
+        final_state_digest="ba1409d0dbcbc4ce356270b0c0a106509e994e7953cfc3148c7c810524febdb3",
+        events_sha256="c0348c0be5a4357c30c0c1565bb76ee09c9ea66ded9c65b6813885f4ee2d3ef0",
+        scorecard_sha256="ecf6fa228938c30995fd776b16fd5b04280e585c37028ba2baf6a3170aedd2d6",
+        bound_total=29700, preempted_total=0, restarts=0,
+        shape=dict(pods=26400, nodes=9900, partitions=4, ticks=18),
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0],
+        quality=dict(utilization_mean=0.2311, jain_fairness=1.0, production_wait_p95=None,
+                     gang_wait_p95_ticks=1.0, preempted_total=0, backfill_binds=0, resizes=3300,
+                     unbound_final=0, drained_at_tick=17, recovery_ticks=3)),
+}
+#: The JAX package's ``interactive_storm`` at :data:`STORM_SCALE` with its
+#: streaming admission off (``admission=None``), the auction pinned, on the
+#: CPU, from ``JAX_PLATFORMS=cpu python tools/port_reference.py --sim
+#: interactive_storm --scale 40 --arm admission_off`` (60.8 s wall and
+#: 1,541 MiB peak RSS on an 8-core host, three runs at a time).
+STORM_OFF_REFERENCE = dict(
+    digest="1d50cf15a4608c5e3ba21bacdb11021c891937e79216acb5e695b9f230a8a2da",
+    final_state_digest="d887eea68f554c5bc4987d3db76220905c3bf51549d4dad4d79c69d45f5a3151",
+    bound_total=43692,
+    scorecard_sha256="272328928a6f1e7fbf7cbb1a5d8380636cee3a83ea96747f9c7838a1a033f73d",
+    utilization_mean=0.2367,
 )
 #: The streaming reschedule at full width: BASELINE config #5's shape and
 #: seed (``benchmarks/scenarios/__init__.py`` ``scenario_5``) — one
@@ -406,14 +588,16 @@ PLACE_REFERENCE = dict(
 #: is the phase's scale: the fake Slurm CLI reads every job record once per
 #: node it lists, so each inventory fetch the providers make costs O(nodes ×
 #: jobs) (``tools/fakeslurm_cost.py`` times it): on the card's machine 1,000
-#: jobs outran the phase's deadline and 250 took ~4 minutes to succeed.
-BRIDGE = dict(num_nodes=10_000, num_jobs=120)
+#: jobs outran the phase's deadline and 250 took ~4 minutes to succeed; 120
+#: took 86.4-184.7 s (an NVIDIA H100 80GB HBM3 at 700 W), and 60 (one gang,
+#: six asking GPUs) leave room in the run's 1,200 s for phase [15].
+BRIDGE = dict(num_nodes=10_000, num_jobs=60)
 #: The JAX package's ``Bridge`` first placing tick at :data:`BRIDGE` over the
 #: fake Slurm CLI (pods bound, :func:`bridge_digest`), from
 #: ``JAX_PLATFORMS=cpu python tools/port_reference.py --bridge``.
 BRIDGE_REFERENCE = dict(
-    placed=120,
-    bridge_sha256="580665ab440eafa64317089bed2f3af7b8d8754266eb71f5624fbbfdd7b6083c",
+    placed=60,
+    bridge_sha256="3412a5f8a431b7141e8bed7f5ee10ce48de7824a7588e61d347337fc6af71a92",
 )
 #: How long the bridge phase waits for every job to succeed and be fetched.
 BRIDGE_DEADLINE_S = 600
@@ -560,6 +744,58 @@ def tick_digest(pods) -> str:
             p.status.reason,
         )).encode() + b"\n")
     return h.hexdigest()
+
+
+def json_digest(obj) -> str:
+    """sha256 of ``obj`` as sorted-key JSON."""
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+
+def virtual_scorecard(quality: dict) -> dict:
+    """A run's scorecard without its wall-clock latencies and the fleet's
+    transport counters: what two runs of one scenario on either package
+    must agree on."""
+    return {k: v for k, v in quality.items() if "latency" not in k and k != "fleet_remote"}
+
+
+def arm_scenario(sc, arm: str, policy_config_cls):
+    """``sc`` under one of :data:`QUALITY_ARMS`, as ``sim/cli.py``'s
+    quality and admission gates build their twins (``policy_config_cls``:
+    either package's ``PolicyConfig``)."""
+    import dataclasses
+
+    replace = dict(on={}, policy_off=dict(policy=None),
+                   backfill_off=dict(policy=policy_config_cls(backfill=False)),
+                   admission_off=dict(admission=None), full_tick=dict(incremental=False))[arm]
+    return dataclasses.replace(sc, **replace)
+
+
+def quality_summary(determinism: dict, quality: dict) -> dict:
+    """The scorecard numbers the quality and admission gates read."""
+    return dict(
+        utilization_mean=quality["utilization_mean"],
+        jain_fairness=quality["jain_fairness"],
+        production_wait_p95=quality["class_wait_p95_ticks"].get("production"),
+        gang_wait_p95_ticks=quality["gang_wait_p95_ticks"],
+        preempted_total=quality["preempted_total"],
+        backfill_binds=quality.get("backfill_binds"),
+        resizes=quality["resizes"],
+        unbound_final=quality["unbound_final"],
+        drained_at_tick=determinism["drained_at_tick"],
+        recovery_ticks=determinism["recovery_ticks"],
+    )
+
+
+def arm_record(result) -> dict:
+    """What an arm's run (either package's ``ScenarioResult``) is held to:
+    digests, bound, preempted, restarts, the events' and the scorecard's
+    digests, the shape and :func:`quality_summary`."""
+    d, q = result.determinism, result.quality
+    return dict(digest=d["digest"], final_state_digest=d["final_state_digest"],
+                bound_total=d["bound_total"], preempted_total=d["preempted_total"],
+                restarts=d["restarts"], events_sha256=json_digest(d["events"]),
+                scorecard_sha256=json_digest(virtual_scorecard(q)), shape=result.shape,
+                quality=quality_summary(d, q))
 
 
 class InventoryClient:
@@ -1148,14 +1384,18 @@ def tick_phase(kern, smi: str) -> dict:
 def pin_auction(sc):
     """The headline's engine pinned, as ``tools/port_reference.py --sim``
     pins the JAX package's run: ``backend="auction"``,
-    ``AuctionConfig(rounds=8, candidates=0)``; each shard of a sharded
-    scenario on the single-device auction."""
+    ``AuctionConfig(rounds=8, candidates=0)``, or a scenario's own
+    auction (``diurnal_load``'s) with only ``candidates=0``; each shard
+    of a sharded scenario on the single-device auction."""
     import dataclasses
 
     from slurm_bridge_tpu_torch.solver import AuctionConfig
 
-    sc = dataclasses.replace(sc, backend="auction",
-                             auction_config=AuctionConfig(rounds=ROUNDS, candidates=0))
+    if sc.backend == "auction" and sc.auction_config is not None:
+        cfg = dataclasses.replace(sc.auction_config, candidates=0)
+    else:
+        cfg = AuctionConfig(rounds=ROUNDS, candidates=0)
+    sc = dataclasses.replace(sc, backend="auction", auction_config=cfg)
     if sc.sharding is not None:
         sc = dataclasses.replace(sc, sharding=dataclasses.replace(sc.sharding, device_solve=False))
     return sc
@@ -1537,8 +1777,174 @@ def storm_phase(kern, smi: str) -> dict:
     for j, r in enumerate(calls):
         p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
         errs.append(compare_recorded(kern, r, f"storm tick {first} call {j} ({n},{p})"))
+
+    # the admission-off twin: the same arrivals through the batch tick alone
+    twin = storm_twin(kern, smi, sc, q)
     return dict(result=result, ticks=ticks, errs=errs, wall_s=run["wall_s"], first=first,
-                admission=adm, fast_p50_ms=fast_p50, fast_p99_ms=fast_p99)
+                admission=adm, fast_p50_ms=fast_p50, fast_p99_ms=fast_p99, twin=twin)
+
+
+def storm_twin(kern, smi: str, sc, on_quality: dict) -> dict:
+    """Phase 14's admission-off twin (``admission=None``), held to the JAX
+    package's twin (:data:`STORM_OFF_REFERENCE`) and to ``sim/cli.py``'s
+    ``_admission`` comparison with the on arm: batch utilization within
+    ``util_margin`` (required where the JAX package's two arms hold it) and
+    a half-tick floor over the latency gate."""
+    from slurm_bridge_tpu_torch.policy.engine import PolicyConfig
+    from slurm_bridge_tpu_torch.sim.cli import ADMISSION_GATES
+
+    off_sc = arm_scenario(sc, "admission_off", PolicyConfig)
+    run = run_sim(kern, smi, off_sc, "interactive_storm admission off")
+    result, ticks = run["result"], run["ticks"]
+    d, q = result.determinism, result.quality
+    require(d["invariant_violations"] == [], d["invariant_violations"][:3])
+    got = dict(arm_record(result), utilization_mean=q["utilization_mean"])
+    for key, want in STORM_OFF_REFERENCE.items():
+        require(got[key] == want,
+                f"interactive_storm admission off: {key} {got[key]} differs from the JAX "
+                f"package's {want}")
+    for i, t in enumerate(ticks):
+        require(t["launches"] == ROUNDS * t["solves"],
+                f"admission-off tick {i}: {t['launches']} kernel launches for {t['solves']} solves")
+    margin = ADMISSION_GATES["util_margin"]
+    gap = abs(on_quality["utilization_mean"] - q["utilization_mean"])
+    ref_gap = abs(STORM_REFERENCE["utilization_mean"] - STORM_OFF_REFERENCE["utilization_mean"])
+    half_tick_ms = off_sc.tick_interval_s * 500.0
+    log(f"  admission off: bound {d['bound_total']}, utilization {q['utilization_mean']} beside "
+        f"the on arm's {on_quality['utilization_mean']} (gap {gap:.4f}, margin {margin}; the JAX "
+        f"package's gap {ref_gap:.4f}) and the on arm's interactive p99 "
+        f"{on_quality['interactive_latency_p99_ms']} ms; the off arm's p99 "
+        f"{q['interactive_latency_p99_ms']} ms, half-tick floor {half_tick_ms:.0f} ms over the "
+        f"{ADMISSION_GATES['p99_ms']} ms gate; tick p50 {result.timing['tick_p50_ms']:.1f} ms, "
+        f"twin wall {run['wall_s']:.1f} s [{smi}]")
+    require(gap <= margin or ref_gap > margin,
+            f"utilization gap {gap} to the admission-off twin over the {margin} margin, which "
+            f"the JAX package's arms hold ({ref_gap})")
+    require(half_tick_ms > ADMISSION_GATES["p99_ms"],
+            f"a half tick ({half_tick_ms} ms) is within the {ADMISSION_GATES['p99_ms']} ms gate: "
+            "the comparison is vacuous")
+    return dict(result=result, ticks=ticks, wall_s=run["wall_s"], gap=gap,
+                launches=sum(t["launches"] for t in ticks))
+
+
+def quality_gates(name: str, arms: dict, gates: dict, max_recovery_ticks) -> list:
+    """``sim/cli.py``'s ``_quality`` gates on scenario ``name``, read from
+    its arms' :func:`quality_summary` (``arms``: arm -> summary, ``gates``:
+    ``QUALITY_GATES``). Returns (gate, holds, values) for each."""
+    on, out = arms["on"], []
+    if name == "multi_tenant_storm":
+        off = arms["policy_off"]["jain_fairness"]
+        out += [("Jain on >= floor", on["jain_fairness"] >= gates["jain_on_floor"],
+                 f"{on['jain_fairness']} >= {gates['jain_on_floor']}"),
+                ("Jain policy-off < ceiling", off < gates["jain_off_ceiling"],
+                 f"{off} < {gates['jain_off_ceiling']}")]
+    elif name == "priority_inversion":
+        wait, off = on["production_wait_p95"], arms["policy_off"]["production_wait_p95"]
+        out += [("production wait p95 <= bound",
+                 wait is not None and wait <= gates["max_wait_ticks"],
+                 f"{wait} <= {gates['max_wait_ticks']}"),
+                ("at least one preemption", on["preempted_total"] >= 1,
+                 f"{on['preempted_total']} >= 1"),
+                ("policy-off wait worse", off is None or wait is None or off > wait,
+                 f"{off} > {wait}")]
+    elif name == "diurnal_load":
+        off, nobf = arms["policy_off"], arms["backfill_off"]
+        floor = off["utilization_mean"] + gates["util_margin"]
+        out += [("utilization >= policy-off + margin", on["utilization_mean"] >= floor,
+                 f"{on['utilization_mean']} >= {off['utilization_mean']} + "
+                 f"{gates['util_margin']}"),
+                ("backfill fired", bool(on["backfill_binds"]), f"{on['backfill_binds']} binds"),
+                ("gang wait p95 < backfill-off's",
+                 on["gang_wait_p95_ticks"] < nobf["gang_wait_p95_ticks"],
+                 f"{on['gang_wait_p95_ticks']} < {nobf['gang_wait_p95_ticks']}")]
+    elif name == "elastic_resize":
+        rec = on["recovery_ticks"]
+        out += [("resizes applied", bool(on["resizes"]), f"{on['resizes']} resizes"),
+                ("drained", on["drained_at_tick"] is not None,
+                 f"drained at tick {on['drained_at_tick']}"),
+                ("none left unbound", not on["unbound_final"], f"{on['unbound_final']} unbound"),
+                ("recovery within bound",
+                 rec is not None and (max_recovery_ticks is None or rec <= max_recovery_ticks),
+                 f"{rec} <= {max_recovery_ticks}")]
+    return out
+
+
+def quality_phase(kern, smi: str) -> dict:
+    """Phase 15: the policy tick with preemption at the headline's cluster
+    width (module docstring). Returns what the kernels line and the
+    summary print."""
+    from slurm_bridge_tpu_torch.policy.engine import PolicyConfig
+    from slurm_bridge_tpu_torch.sim.cli import QUALITY_GATES
+    from slurm_bridge_tpu_torch.sim.scenarios import SCENARIOS
+
+    out, errs, t_phase = {}, [], time.perf_counter()
+    for name, cell in QUALITY_CELLS.items():
+        summaries, ref_summaries = {}, {}
+        for arm in cell["arms"]:
+            label = f"{name}@{cell['scale']} {arm}"
+            want = QUALITY_REFERENCE[f"{name}/{arm}"]
+            sc = pin_auction(arm_scenario(SCENARIOS[name](scale=cell["scale"]), arm, PolicyConfig))
+            rounds = sc.auction_config.rounds
+            held_from = cell.get("hold_from")
+            keep = range(held_from, sc.ticks) if held_from is not None and arm == "on" else ()
+            run = run_sim(kern, smi, sc, label, keep=keep)
+            result, ticks = run["result"], run["ticks"]
+            d, q = result.determinism, result.quality
+            got = dict(arm_record(result), solves=[t["solves"] for t in ticks])
+            summaries[arm], ref_summaries[arm] = got["quality"], want["quality"]
+            require(d["invariant_violations"] == [],
+                    f"{label}: {d['invariant_violations'][:3]}")
+            for key, value in want.items():
+                require(got[key] == value,
+                        f"{label}: {key} {got[key]} differs from the JAX package's {value}")
+            for i, t in enumerate(ticks):
+                require(t["launches"] == rounds * t["solves"],
+                        f"{label} tick {i}: {t['launches']} kernel launches for {t['solves']} "
+                        f"solves of {rounds} rounds")
+            launches = sum(t["launches"] for t in ticks)
+            compared = 0
+            if keep:
+                first = next((i for i in keep if ticks[i]["solves"]), None)
+                require(first is not None, f"{label}: no solving tick from tick {held_from}")
+                calls = run["kept"][first]
+                require(len(calls) == rounds * ticks[first]["solves"],
+                        f"{label}: {len(calls)} kernel calls kept on tick {first}")
+                for j, r in enumerate(calls):
+                    p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
+                    errs.append(compare_recorded(kern, r, f"{label} tick {first} call {j} "
+                                                 f"({n},{p})"))
+                compared = len(calls)
+            s = got["quality"]
+            log(f"  {label}: {len(ticks)} ticks, tick p50 {result.timing['tick_p50_ms']:.1f} ms, "
+                f"bound {d['bound_total']}, preempted {s['preempted_total']}, backfill binds "
+                f"{s['backfill_binds']}, Jain {s['jain_fairness']}, utilization "
+                f"{s['utilization_mean']}, class wait p95 {q['class_wait_p95_ticks']}, kernel "
+                f"launches {launches}, calls held bit-exact {compared}; digests and scorecard "
+                f"equal the JAX package's; arm wall {run['wall_s']:.1f} s [{smi}]")
+            out[label] = dict(result=result, ticks=ticks, wall_s=run["wall_s"],
+                              launches=launches, compared=compared, summary=s)
+        if "full_tick" in cell["arms"]:
+            a, b = out[f"{name}@{cell['scale']} on"], out[f"{name}@{cell['scale']} full_tick"]
+            for key in ("digest", "final_state_digest"):
+                require(a["result"].determinism[key] == b["result"].determinism[key],
+                        f"{name}: the full tick's {key} differs from the incremental tick's")
+            require(virtual_scorecard(a["result"].quality) == virtual_scorecard(b["result"].quality),
+                    f"{name}: the full tick's scorecard differs from the incremental tick's")
+        max_rec = SCENARIOS[name](scale=cell["scale"]).max_recovery_ticks
+        ref_gates = quality_gates(name, ref_summaries, QUALITY_GATES, max_rec)
+        for (gate, holds, values), (_, ref_holds, ref_values) in zip(
+                quality_gates(name, summaries, QUALITY_GATES, max_rec), ref_gates):
+            log(f"  {name}@{cell['scale']} gate {gate}: {'holds' if holds else 'MISSED'} "
+                f"({values}); the JAX package's: {'holds' if ref_holds else 'missed'} "
+                f"({ref_values})" + ("" if ref_holds else " - not required"))
+            require(holds or not ref_holds,
+                    f"{name}@{cell['scale']}: gate {gate} missed ({values}) where the JAX "
+                    f"package's run holds it ({ref_values})")
+    wall_s = time.perf_counter() - t_phase
+    log(f"  placement quality: {len(out)} arms, phase wall {wall_s:.1f} s [{smi}]")
+    return dict(arms=out, errs=errs, wall_s=wall_s,
+                launches=sum(a["launches"] for a in out.values()),
+                compared=sum(a["compared"] for a in out.values()))
 
 
 def churn_phase(kern, smi: str) -> dict:
@@ -2507,7 +2913,18 @@ def main() -> int:
     require(storm_launches > 0, "no kernel launch in the admission phase")
     errs += storm["errs"]
 
-    # 15. the JAX package's result on the reduced scenario
+    # 15. the policy tick with preemption: the placement-quality arms
+    log("[15] main path: the simulator's placement-quality scenarios (priority_inversion, "
+        "multi_tenant_storm, diurnal_load, elastic_resize) and their policy-off, backfill-off "
+        "and full-tick arms at the headline's cluster width through the port's full bridge loop")
+    kern.LAUNCHES = 0
+    quality = quality_phase(kern, smi)
+    quality_launches = kern.LAUNCHES
+    require(quality_launches > 0 and quality_launches == quality["launches"],
+            f"{quality_launches} kernel launches in the quality phase")
+    errs += quality["errs"]
+
+    # 16. the JAX package's result on the reduced scenario
     ref_snap, ref_batch = random_scenario(
         REFERENCE["nodes"], REFERENCE["jobs"], seed=42, load=0.7,
         gpu_fraction=0.15, gang_fraction=0.05,
@@ -2518,18 +2935,18 @@ def main() -> int:
     ref_jobs = len(ref_pl.by_job(ref_batch))
     rel = abs(ref_jobs - REFERENCE["placed_jobs"]) / REFERENCE["placed_jobs"]
     match = digest(ref_pl.node_of) == REFERENCE["node_of_sha256"]
-    log(f"[15] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
+    log(f"[16] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
         f"vs JAX {REFERENCE['placed_jobs']} (rel {rel:.5f}); node_of digest matches JAX: {match}")
     require(rel <= 0.005, rel)
 
-    # 16. times
+    # 17. times
     p50 = statistics.median(wall_ms)
-    log(f"[16] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
+    log(f"[17] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
         f"(min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); kernel {kernel_ms:.4f} ms/launch "
         f"(bound {bound_ms:.4f}, ceiling {ceiling_ms:.4f}), {ms_per_solve:.4f} ms per solve; "
         f"total run {time.perf_counter() - t_start:.0f} s")
     for i, t in enumerate(tick["ticks"]):
-        log(f"[16] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
+        log(f"[17] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in t["phase_ms"].items())
             + f"; {t['launches']} kernel launches")
     for label, run, launches in (("full_50kx10k_steady", sim, sim_launches),
@@ -2537,23 +2954,34 @@ def main() -> int:
                                  ("full_500kx100k_steady", shard, shard_launches),
                                  ("interactive_storm", storm, storm_launches)):
         tm = run["result"].timing
-        log(f"[16] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
+        log(f"[17] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
             + f" (p50 over {len(run['ticks'])} ticks); {launches} kernel launches; "
             f"phase wall {run['wall_s']:.1f} s")
     for label, run in (("full_50kx10k_steady", sim), ("full_500kx100k_steady", shard)):
         st = run["steady"]
-        log(f"[16] [{smi}] {label}: steady ticks {st['ticks']}, steady tick p50 {st['p50_ms']:.3f} "
+        log(f"[17] [{smi}] {label}: steady ticks {st['ticks']}, steady tick p50 {st['p50_ms']:.3f} "
             f"ms (gate {st['gate_ms']:.0f} ms), each: "
             + "; ".join(f"tick {i} " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                 run["ticks"][i]["phases"].items()) + " ms"
                         for i in st["ticks"]))
-    log(f"[16] [{smi}] interactive_storm: fast binds {storm['admission']['binds']}, misses "
+    log(f"[17] [{smi}] interactive_storm: fast binds {storm['admission']['binds']}, misses "
         f"{storm['admission']['misses']}, interactive arrival-to-bind p50 "
         f"{storm['result'].quality['interactive_latency_p50_ms']} / p99 "
         f"{storm['result'].quality['interactive_latency_p99_ms']} ms, one fast admission's wall "
-        f"p50 {storm['fast_p50_ms']:.3f} / p99 {storm['fast_p99_ms']:.3f} ms")
-    log(f"[16] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; full_500kx100k: "
+        f"p50 {storm['fast_p50_ms']:.3f} / p99 {storm['fast_p99_ms']:.3f} ms; admission-off "
+        f"twin: utilization {storm['twin']['result'].quality['utilization_mean']} (on "
+        f"{storm['result'].quality['utilization_mean']}), tick p50 "
+        f"{storm['twin']['result'].timing['tick_p50_ms']:.1f} ms, wall {storm['twin']['wall_s']:.1f} s")
+    for label, arm in quality["arms"].items():
+        tm, sm = arm["result"].timing, arm["summary"]
+        log(f"[17] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
+            + f" (p50 over {len(arm['ticks'])} ticks); preempted {sm['preempted_total']}, "
+            f"backfill binds {sm['backfill_binds']}, Jain {sm['jain_fairness']}, utilization "
+            f"{sm['utilization_mean']}, production wait p95 {sm['production_wait_p95']}; "
+            f"{arm['launches']} kernel launches; arm wall {arm['wall_s']:.1f} s")
+    log(f"[17] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; full_500kx100k: "
         f"{len(shard['sizes'])} shards of {shard['sizes']} nodes, shard solves "
         f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms, kernel per solve of tick 0's shard "
         f"solves {shard['held']}: {[round(k['ms_per_solve'], 4) for k in shard['kernel']]} ms; "
@@ -2561,21 +2989,21 @@ def main() -> int:
         f"phase-sum drift {shard['drift']:.2f} % (gate ±{shard['drift_gate']} %); device memory "
         f"peak {shard['device_peak'] / 2**20:.1f} MiB, host peak RSS "
         f"{shard['host_peak'] / 2**20:.0f} MiB")
-    log(f"[16] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
+    log(f"[17] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
         f"re-solve ms {[round(t['solve_ms'], 1) for t in churn['ticks']]}, "
         f"{churn_launches} kernel launches, kernel {churn['kernel']['ms_per_solve']:.4f} ms per "
         f"solve on churn tick 1; auto route {churn['auto_route']}")
-    log(f"[16] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
+    log(f"[17] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
         f"(solve {[round(t['solve_ms'], 1) for t in sidecar['places']]}), "
         f"{sidecar_launches} kernel launches, kernel {sidecar['kernel']['ms_per_solve']:.4f} ms "
         f"per solve on Place 0")
     tk = daemons["tick"]
-    log(f"[16] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
+    log(f"[17] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
         + ", ".join(f"{k} {v:.1f} ms" for k, v in tk["phase_ms"].items())
         + f"), kernel {daemons['kernel']['ms_per_solve']:.4f} ms over {ROUNDS} launches; "
         f"{BRIDGE['num_jobs']} jobs submit to last Succeeded {daemons['wall_s']:.1f} s; "
         f"{daemons_launches} kernel launches")
-    log(f"[16] [{smi}] multi-device sweep ({SWEEP['dp']}x{SWEEP['mp']} cuda:0 blocks): solve "
+    log(f"[17] [{smi}] multi-device sweep ({SWEEP['dp']}x{SWEEP['mp']} cuda:0 blocks): solve "
         f"wall {[round(w, 1) for w in sweep['walls']]} ms, kernel {sweep['ms_per_solve']:.4f} ms "
         f"per solve over {sweep['solve_launches'][0]} block launches, combine and gathers "
         f"{sum(sweep['combine_ms']):.4f} ms per solve; forced-sharded tick "
@@ -2583,7 +3011,7 @@ def main() -> int:
         f"{[[round(sv['wall_ms'], 1) for sv in rk['solves']] for rk in sweep['ranks']]} ms; "
         f"{sweep_launches} kernel launches")
     c4, c2 = base["config4"], base["config2"]
-    log(f"[16] [{smi}] BASELINE config #4: solve p50 {c4['p50_ms']:.1f} ms, kernel "
+    log(f"[17] [{smi}] BASELINE config #4: solve p50 {c4['p50_ms']:.1f} ms, kernel "
         f"{c4['ms_per_solve']:.4f} ms per solve over {c4['launches_per_solve']} launches "
         f"(bound {c4['solve_bound']:.4f}, ceiling {c4['solve_ceiling']:.4f}), "
         f"{c4['launch_ms']:.4f} ms all-live launch, device memory peak {c4['peak'] / 2**20:.1f} "
@@ -2608,10 +3036,14 @@ def main() -> int:
         "ceiling_ms": ceiling_ms,
         "launches_per_tick": [t["launches"] for t in tick["ticks"]]
         + [t["launches"] for t in sim["ticks"]] + [t["launches"] for t in crash["ticks"]]
-        + [t["launches"] for t in shard["ticks"]] + [t["launches"] for t in storm["ticks"]],
+        + [t["launches"] for t in shard["ticks"]] + [t["launches"] for t in storm["ticks"]]
+        + [t["launches"] for t in storm["twin"]["ticks"]]
+        + [t["launches"] for arm in quality["arms"].values() for t in arm["ticks"]],
         "launches_per_steady_tick": [sim["ticks"][i]["launches"] for i in sim["steady"]["ticks"]]
         + [shard["ticks"][i]["launches"] for i in shard["steady"]["ticks"]],
         "launches_storm_phase": storm_launches,
+        "launches_quality_phase": quality_launches,
+        "quality_calls_compared": quality["compared"],
         "launches_per_shard_solve": [sv["launches"] for sv in shard["solves"]],
         "shard_solves_timed": shard["held"],
         "shard_kernel_ms_per_solve": [k["ms_per_solve"] for k in shard["kernel"]],

@@ -317,6 +317,16 @@ def _quiet_event_logs() -> None:
     logging.getLogger("sbt.configurator").setLevel(logging.ERROR)
 
 
+def _collect_young() -> None:
+    """The between-tick collection over what the tick allocated: the
+    survivors join the frozen heap, so the next one does not re-scan the
+    store's million live objects (a full collection took ~0.4 s a tick
+    at the 80-scale quality scenarios on an 8-core host). Cycles that
+    reach into the frozen heap wait for ``run``'s ``gc.unfreeze``."""
+    gc.collect()
+    gc.freeze()
+
+
 class SimHarness:
     #: snapshot-compaction cadence (ticks): keeps both recovery inputs —
     #: a recent snapshot AND a WAL tail since it — live in every
@@ -1648,7 +1658,7 @@ class SimHarness:
             tick = 0
             for tick in range(sc.ticks):
                 self._progress(tick, self.run_tick(tick))
-                gc.collect()
+                _collect_young()
             grace_used = 0
             while (
                 grace_used < sc.drain_grace_ticks
@@ -1657,7 +1667,7 @@ class SimHarness:
                 tick += 1
                 grace_used += 1
                 self._progress(tick, self.run_tick(tick, arrivals=False))
-                gc.collect()
+                _collect_young()
         finally:
             gc.unfreeze()
             if was_enabled:

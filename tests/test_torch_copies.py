@@ -363,6 +363,23 @@ ALLOWED = {
          "    return SimHarness(scenario).run()\n",
          "def run_scenario(scenario: Scenario, device=None) -> ScenarioResult:\n"
          "    return SimHarness(scenario, device=device).run()\n"),
+        # the between-tick collection scans only what the tick allocated
+        # (PERF.md §5): a full one re-scanned the store's million live
+        # objects every tick at the quality scenarios' widths; same work,
+        # same digests
+        ("                gc.collect()\n", "                _collect_young()\n", 2),
+        ("class SimHarness:\n",
+         "def _collect_young() -> None:\n"
+         '    """The between-tick collection over what the tick allocated: the\n'
+         "    survivors join the frozen heap, so the next one does not re-scan the\n"
+         "    store's million live objects (a full collection took ~0.4 s a tick\n"
+         "    at the 80-scale quality scenarios on an 8-core host). Cycles that\n"
+         '    reach into the frozen heap wait for ``run``\'s ``gc.unfreeze``."""\n'
+         "    gc.collect()\n"
+         "    gc.freeze()\n"
+         "\n"
+         "\n"
+         "class SimHarness:\n"),
     ],
     "sim/scenarios.py": [],
     "sim/cli.py": [],

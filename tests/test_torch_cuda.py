@@ -406,6 +406,34 @@ def test_sim_on_card_equals_cpu(cuda):
     assert card.determinism["invariant_violations"] == []
 
 
+@pytest.mark.cuda
+def test_preempting_policy_tick_on_card_equals_cpu(cuda):
+    """priority_inversion at scale 1 (120 nodes, a production gang storm
+    over batch incumbents, preemption and the placement policy on) with
+    the auction pinned: the card's run preempts and ends with the CPU's
+    digests, bound, preempted count and scorecard, its solves on the
+    kernel."""
+    import dataclasses
+
+    from slurm_bridge_tpu_torch.sim import run_scenario
+    from slurm_bridge_tpu_torch.sim.scenarios import priority_inversion
+
+    sc = dataclasses.replace(
+        priority_inversion(scale=1.0), backend="auction",
+        auction_config=AuctionConfig(rounds=8, candidates=0),
+    )
+    before = kern.LAUNCHES
+    card = run_scenario(sc, device="cuda")
+    assert kern.LAUNCHES > before
+    cpu = run_scenario(sc, device="cpu")
+    for key in ("digest", "final_state_digest", "bound_total", "preempted_total", "events"):
+        assert card.determinism[key] == cpu.determinism[key], key
+    assert card.determinism["preempted_total"] >= 1
+    assert card.determinism["invariant_violations"] == []
+    virtual = [{k: v for k, v in r.quality.items() if "latency" not in k} for r in (card, cpu)]
+    assert virtual[0] == virtual[1]
+
+
 _POOL_AFTER_CUDA = """
 import os, sys
 import torch

@@ -1,10 +1,11 @@
 """chip_smoke.py's simulator phases alone on the card, each run to its end.
 
-    python3 tools/port_phases.py [sim] [shard] [storm]
+    python3 tools/port_phases.py [sim] [shard] [storm] [quality]
 
 Builds the kernel, then runs phase [6] (``sim``: ``full_50kx10k_steady``),
-[8] (``shard``: ``full_500kx100k_steady``, with its deadline lifted) and
-[14] (``storm``: ``interactive_storm`` at scale 40) — all three by
+[8] (``shard``: ``full_500kx100k_steady``, with its deadline lifted),
+[14] (``storm``: ``interactive_storm`` at scale 40 and its admission-off
+twin) and [15] (``quality``: the placement-quality arms) — all four by
 default — with every check chip_smoke.py makes, going on to the next
 phase when one fails. After phases [6] and [8] it prints the flight
 record's span tree of ticks 3-5 (the last solving tick and the steady
@@ -30,6 +31,7 @@ PHASES = {
     "sim": lambda kern, smi: cs.sim_phase(kern, smi),
     "shard": lambda kern, smi: cs.shard_phase(kern, smi, sm_hz=1.98e9),
     "storm": lambda kern, smi: cs.storm_phase(kern, smi),
+    "quality": lambda kern, smi: cs.quality_phase(kern, smi),
 }
 #: the ticks whose span trees print: the last solving tick, the steady ones
 TREE_TICKS = range(3, 6)
@@ -74,7 +76,7 @@ def main() -> int:
             rc = 1
             cs.log(f"PHASE {name} FAILED:\n{traceback.format_exc()}")
         cs.log(f"PHASE {name} wall {time.perf_counter() - t0:.1f} s [{smi}]")
-        if name != "storm" and runs:
+        if name in ("sim", "shard") and runs:
             flight = runs[0]["harness"].flight
             for t in TREE_TICKS:
                 rec, out = flight.records[t], []

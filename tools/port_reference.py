@@ -32,7 +32,17 @@ the tick's ms); a ``*_steady`` scenario adds ``tick2``, its trace digest
 and ``final_state_digest`` after tick 2 (the end of its 3-tick twin's
 run); a scenario with streaming admission adds the admitter's attempts,
 binds and misses by reason, the fast-path binds and the interactive
-arrival-to-bind p50 and p99.
+arrival-to-bind p50 and p99. Every run prints chip_smoke.py's
+``arm_record`` of it: besides the digests and bound, its
+``preempted_total``, restarts, the events' and the scorecard's digests
+(the scorecard without its wall-clock latencies) and the numbers the
+quality gates read. ``--arm`` runs the scenario's twin
+(chip_smoke.py's ``arm_scenario``): ``policy_off`` (``policy=None``),
+``backfill_off`` (``PolicyConfig(backfill=False)``), ``admission_off``
+(``admission=None``) or ``full_tick`` (``incremental=False``). A
+scenario that sets its own ``backend="auction"`` and ``auction_config``
+(``diurnal_load``: 2 rounds, repair off, 1 salvage round) keeps them,
+with only ``candidates=0, use_pallas=False`` pinned.
 
 ``--churn``: runs the JAX package's streaming reschedule at
 chip_smoke.py's ``CHURN`` shape (BASELINE config #5: ``churn_scenario(
@@ -90,7 +100,8 @@ sampled auction path (K hash-drawn candidates per shard from its
 ``random_scenario`` run (``rounds=8``).
 
 chip_smoke.py holds the port's solve, tick, simulator, streaming, sidecar,
-sweep and BASELINE-config runs on the card to these numbers.
+sweep, BASELINE-config and placement-quality runs on the card to these
+numbers.
 
     JAX_PLATFORMS=cpu python tools/port_reference.py --nodes 2000 --jobs 10000
     JAX_PLATFORMS=cpu python tools/port_reference.py --tick --nodes 10000 --jobs 50000
@@ -100,6 +111,8 @@ sweep and BASELINE-config runs on the card to these numbers.
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_50kx10k_steady
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim full_500kx100k_steady
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim interactive_storm --scale 40
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim interactive_storm --scale 40 --arm admission_off
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim priority_inversion --scale 80 --arm policy_off
     JAX_PLATFORMS=cpu python tools/port_reference.py --churn
     JAX_PLATFORMS=cpu python tools/port_reference.py --place --nodes 10000 --jobs 50000
     JAX_PLATFORMS=cpu python tools/port_reference.py --bridge
@@ -137,8 +150,11 @@ from chip_smoke import (  # noqa: E402
     BRIDGE,
     CHURN,
     CHURN_TICKS,
+    QUALITY_ARMS,
     STEADY_CHECKPOINT_TICK,
     InventoryClient,
+    arm_record,
+    arm_scenario,
     bridge_first_tick,
     bridge_inventory,
     bridge_jobs,
@@ -197,17 +213,22 @@ def run_ticks(num_nodes: int, num_jobs: int, seed: int, ticks: int = 2,
     return {"load_seconds": round(load_s, 3), "ticks": out}
 
 
-def run_sim(name: str, scale: float) -> dict:
+def run_sim(name: str, scale: float, arm: str = "on") -> dict:
     import dataclasses
 
+    from slurm_bridge_tpu.policy.engine import PolicyConfig
     from slurm_bridge_tpu.sim.harness import SimHarness
     from slurm_bridge_tpu.sim.scenarios import SCENARIOS
 
-    sc = dataclasses.replace(
-        SCENARIOS[name](scale=scale), backend="auction",
-        auction_config=AuctionConfig(rounds=8, candidates=0),
-    )
-    config = 'backend="auction", AuctionConfig(rounds=8, candidates=0)'
+    sc = arm_scenario(SCENARIOS[name](scale=scale), arm, PolicyConfig)
+    if sc.backend == "auction" and sc.auction_config is not None:
+        # the scenario's own auction: its rounds, repair and salvage kept
+        cfg = dataclasses.replace(sc.auction_config, candidates=0, use_pallas=False)
+        config = f'backend="auction", {cfg}'
+    else:
+        cfg = AuctionConfig(rounds=8, candidates=0)
+        config = 'backend="auction", AuctionConfig(rounds=8, candidates=0)'
+    sc = dataclasses.replace(sc, backend="auction", auction_config=cfg)
     if sc.sharding is not None:
         sc = dataclasses.replace(
             sc, sharding=dataclasses.replace(sc.sharding, device_solve=False)
@@ -231,13 +252,10 @@ def run_sim(name: str, scale: float) -> dict:
     r = h.run()
     d = r.determinism
     out = {
-        "sim": name, "scale": scale, "config": config,
-        "digest": d["digest"],
-        "final_state_digest": d["final_state_digest"],
-        "bound_total": d["bound_total"],
+        "sim": name, "scale": scale, "arm": arm, "config": config,
+        **arm_record(r),
         "invariant_violations": len(d["invariant_violations"]),
         "vnode_deletions": d["vnode_deletions"],
-        "shape": r.shape,
         "cpu_seconds_wall": round(time.perf_counter() - t0, 3),
         "tick_p50_ms": r.timing["tick_p50_ms"],
         "phases_p50_ms": r.timing["phases_p50_ms"],
@@ -404,6 +422,9 @@ def main() -> None:
                     help="run the simulator's scenario NAME with the auction pinned")
     ap.add_argument("--scale", type=float, default=1.0,
                     help="the --sim scenario's scale")
+    ap.add_argument("--arm", choices=QUALITY_ARMS, default="on",
+                    help="the --sim scenario's arm: policy off, backfill off, admission "
+                    "off or the full (non-incremental) tick (default: as defined)")
     ap.add_argument("--churn", action="store_true",
                     help="run the streaming reschedule at chip_smoke.py's CHURN shape")
     ap.add_argument("--place", action="store_true",
@@ -453,7 +474,7 @@ def main() -> None:
         }))
         return
     if args.sim:
-        res = run_sim(args.sim, args.scale)
+        res = run_sim(args.sim, args.scale, args.arm)
         print(json.dumps({
             **res,
             "max_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
