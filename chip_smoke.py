@@ -4,13 +4,15 @@ placement tick, the bridge's job lifecycle on the simulated cluster and
 its steady state, its recovery from a crash, the sharded tick and its
 steady state, the streaming reschedule, the placement-solver sidecar, the
 bridge's daemons, the multi-device sweep, the BASELINE configs #2 and #4
-and the sampled auction path, the streaming-admission fast path, and the
-policy tick with preemption (the placement-quality scenarios).
+and the sampled auction path, the streaming-admission fast path, the
+policy tick with preemption (the placement-quality scenarios), and the
+fault gates (the chaos, fault and shard scenarios).
 
     python3 chip_smoke.py
 
 (``chip_smoke.py --sweep-rank RANK PORT DEVICE`` is one rank of phase 12's
-two-process run; phase 12 starts both itself.)
+two-process run; phase 12 starts both itself. ``chip_smoke.py
+--late-phases OUT`` runs phases 15 and 16; the run starts it itself.)
 
 Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``; exits non-zero
 without one. Imports nothing of JAX or of the JAX package. Phases, each of
@@ -248,9 +250,39 @@ which fails the run:
     hold; each it misses is printed beside its values. Prints each arm's
     ticks and phases, preempted, backfill binds, Jain, utilization, class
     wait p95, kernel launches, calls compared and wall time;
-16. hold the card against the JAX package's result on a reduced scenario
+16. the fault gates (:data:`FAULT_CELLS`): every fault scenario of
+    ``sim/cli.py``'s smoke, chaos and shard gates with the pinned engine —
+    ``partition_vanish`` at 16 (4,800 nodes, 12,800 jobs; ``part1`` gone
+    for ticks 3-10) and ``node_churn`` at 8 (2,400 nodes, 7,200 jobs;
+    20 % of nodes drained for ticks 4-12, stale inventory and lost status
+    for ticks 5-10), then at scale 1 the
+    RPC flaps, the preemption storm, the bridge crash, the leader
+    failover, the agent crash, the simultaneous crashes, a crash inside an
+    RPC flap and into a vanished partition, and the sharded fan-out with
+    its cross-shard gang reconcile; each scenario with a
+    ``lossless_twin`` also runs its crash-free twin (the bridge and agent
+    crashes stripped). Every run's ``digest``, ``final_state_digest``,
+    ``final_outcome_digest``, ``bound_total``, recovery ticks, restarts,
+    agent restarts, virtual-node deletions, RPC retries, wait reasons,
+    per-tick solves and shard block must equal the JAX package's run
+    (:data:`FAULT_REFERENCE`); ``_smoke``'s gates must hold
+    (:func:`fault_gates`): no invariant violated, recovery within the
+    scenario's bound, no virtual node deleted and a restart after a bridge
+    fault, an agent restart after an agent fault, the twin's final digest
+    equal, at least two shards and a reconciled gang. Every device solve
+    (each shard's too) launches the kernel once per round; each kernel call
+    of the group A runs' fault ticks (:func:`held_fault_ticks`) is held
+    bit-exact against its plain version on its own operands. Prints each
+    run's ticks, tick p50, bound, recovery ticks, restarts and their
+    reload times, launches, calls held and wall time;
+    Phases 15 and 16 run in a second process of this script
+    (``chip_smoke.py --late-phases OUT``, :func:`late_phases`), started
+    beside phase 6 and waited for before phase 8 times its shard solves:
+    phases 6-8 time no kernel meanwhile, and the run's wall is the longer
+    of the two paths, not their sum; their lines print in their place;
+17. hold the card against the JAX package's result on a reduced scenario
     (``tools/port_reference.py``): placed jobs within 0.5 %, digest shown;
-17. print times with the card's name and power limit, and the run's wall
+18. print times with the card's name and power limit, and the run's wall
     time.
 
 The second-to-last lines are the kernels' JSON record and the
@@ -390,9 +422,9 @@ STORM_REFERENCE = dict(
     utilization_mean=0.2367,
 )
 #: The arms a scenario runs under (:func:`arm_scenario`): as defined, its
-#: policy off, its backfill alone off, its streaming admission off, and the
-#: full (non-incremental) tick.
-QUALITY_ARMS = ("on", "policy_off", "backfill_off", "admission_off", "full_tick")
+#: policy off, its backfill alone off, its streaming admission off, the
+#: full (non-incremental) tick, and its bridge and agent crashes stripped.
+QUALITY_ARMS = ("on", "policy_off", "backfill_off", "admission_off", "full_tick", "crash_free")
 #: Phase [15]'s cells: ``sim/cli.py``'s quality scenarios, with the arms
 #: their gates compare, at the headline's cluster width where the run's
 #: time allows it. ``hold_from``: the on arm's first solving tick from that
@@ -525,6 +557,202 @@ QUALITY_REFERENCE = {
         quality=dict(utilization_mean=0.2311, jain_fairness=1.0, production_wait_p95=None,
                      gang_wait_p95_ticks=1.0, preempted_total=0, backfill_binds=0, resizes=3300,
                      unbound_final=0, drained_at_tick=17, recovery_ticks=3)),
+}
+#: Phase [16]'s cells: every fault scenario of ``sim/cli.py``'s smoke,
+#: chaos and shard gates, at the JAX package's own scale knob. Group A
+#: (``hold``): the two faults that change what the kernel sees — a
+#: vanished partition (4,800 nodes, 12,800 jobs) and drained nodes under
+#: stale inventory and lost status (2,400 nodes, 7,200 jobs); their fault
+#: ticks' kernel calls are held against the plain version
+#: (:func:`held_fault_ticks`). Group B at scale 1 (150-900 nodes): the
+#: RPC flaps, the preemption storm, the bridge and agent crashes, the
+#: leader failover and the sharded fan-out. A scenario with a
+#: ``lossless_twin`` also runs its crash-free arm.
+FAULT_CELLS = dict(
+    # group A cut from 32 and 16 (the headline's cluster width): there the
+    # phase took 137.8 s and 174.7 s in two runs on an NVIDIA H100 80GB HBM3
+    # at 700 W, over its 150 s in the second
+    partition_vanish=dict(scale=16, hold=True),
+    node_churn=dict(scale=8, hold=True),
+    # group B cut from scale 2: there the phase took 173.2 s with an NVIDIA
+    # H100 80GB HBM3 at 700 W, over its 150 s (group B 125.9 s, most of each
+    # run the snapshot compactions and restarts, not its ticks); and at 2
+    # sharded_gang_split's shards (480 // 40 = 12 nodes) hold its 8-node
+    # gangs, so nothing reconciles across shards in either package: at 1
+    # (240 // 40 = 6) every gang must
+    agent_flaky_rpc=dict(scale=1),
+    preemption_storm=dict(scale=1),
+    crash_restart=dict(scale=1),
+    leader_failover=dict(scale=1),
+    agent_crash=dict(scale=1),
+    chaos_dual_crash=dict(scale=1),
+    chaos_crash_rpc_flap=dict(scale=1),
+    chaos_crash_into_vanished_partition=dict(scale=1),
+    sharded_smoke=dict(scale=1),
+    sharded_gang_split=dict(scale=1),
+)
+#: The JAX package's simulator on each run of :data:`FAULT_CELLS` (arm
+#: ``on``, and ``crash_free`` for a ``lossless_twin`` scenario) at its
+#: scale, with the engine pinned as :func:`pin_auction` pins it, on the
+#: CPU, from ``JAX_PLATFORMS=cpu python tools/port_reference.py --sim NAME
+#: --scale S --arm ARM`` (its ``fault`` and ``solves``; wall time and peak
+#: RSS beside each, up to four runs at a time on an 8-core host):
+#: :func:`fault_record` and each tick's solves.
+FAULT_REFERENCE = {
+    # --sim partition_vanish --scale 16 --arm on: 14.288 s, 750 MiB
+    "partition_vanish/on": dict(
+        digest="f890e28c0f2b61c1f99b4f2d8a855c858dab91ac5443b4475d5301ae6b5e124e",
+        final_state_digest="303346cbc22b2ad36bbac5f83bcf992d9ec977c385a70893bc6ab4cdaf8dda75",
+        final_outcome_digest="f14af531dc53ab52cf78a4ea7d9b29837d2b1dad0028718d9d8b85893748bc26",
+        bound_total=12800, violations=0, recovery_ticks=1, restarts=0, agent_restarts=0,
+        vnode_deletions=1, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 38, 'NO_READY_VNODE': 8689},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0]),
+    # --sim node_churn --scale 8 --arm on: 7.62 s, 605 MiB
+    "node_churn/on": dict(
+        digest="5850891e6a23d72801e8434abe134aa7ce1abe2789f490efd00bcd6a5caba002",
+        final_state_digest="5f16bb4d64e1a7d338b245a1e85a1ef95965785bb6ec32c0c91992411b4c5555",
+        final_outcome_digest="3e3c9ffbd55eedad37d838ce84a921b6a30738d8d7d1c3d1a612205f1f3ea7a8",
+        bound_total=7173, violations=0, recovery_ticks=0, restarts=0, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 5, 'NO_READY_VNODE': 875},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0]),
+    # --sim agent_flaky_rpc --scale 1 --arm on: 1.606 s, 488 MiB
+    "agent_flaky_rpc/on": dict(
+        digest="26e78f9acd07db5911eabf238305f39e5e2920e33dc234b2c108366d92fb9cc3",
+        final_state_digest="cd75701440f34666367f1f8997a20e60a864b2bc009f2eec67f9a89bec8cb65a",
+        final_outcome_digest="1f055366046db5c056ee7fbd414231f2c150b994203f5213d5fc30604601ff84",
+        bound_total=1000, violations=0, recovery_ticks=1, restarts=0, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 5, 'NO_READY_VNODE': 126, 'PARTITION_FULL': 19},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0]),
+    # --sim preemption_storm --scale 1 --arm on: 1.746 s, 476 MiB
+    "preemption_storm/on": dict(
+        digest="1a9b86e7a6fc34ecfb2a74b13c5ae429d2389b4efb4201ab0ef506383dc64b8b",
+        final_state_digest="87c5ddd68279f1cd15b27cc92a3e3e51386a2c62dd76803ffa831cc1d8fa84e8",
+        final_outcome_digest="7df8b0e340d6bec14ec263b823549326d6051413960921dd7e925801ac69962e",
+        bound_total=1287, violations=0, recovery_ticks=12, restarts=0, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 1130, 'NO_READY_VNODE': 182},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1]),
+    # --sim crash_restart --scale 1 --arm on: 3.891 s, 509 MiB
+    "crash_restart/on": dict(
+        digest="4bc6d8efde963cf68d4552c8e38f9eead92ca77fd5582db413347a5ca5c7ed87",
+        final_state_digest="20d58326a3b4e1729c43a90c9cd5715168524996638112a90f189a2ad470d145",
+        final_outcome_digest="73c0c4b834be22ef47e55f35e0eae856eb4046ceca54a9940115660b8a12d808",
+        bound_total=900, violations=0, recovery_ticks=4, restarts=1, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 22, 'NO_READY_VNODE': 93, 'PARTITION_FULL': 3},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0]),
+    # --sim crash_restart --scale 1 --arm crash_free: 3.809 s, 519 MiB
+    "crash_restart/crash_free": dict(
+        digest="67b24b179901742c4f16231bcb6555830796a91cd17e76bb17471db8b1b77769",
+        final_state_digest="20d58326a3b4e1729c43a90c9cd5715168524996638112a90f189a2ad470d145",
+        final_outcome_digest="73c0c4b834be22ef47e55f35e0eae856eb4046ceca54a9940115660b8a12d808",
+        bound_total=900, violations=0, recovery_ticks=None, restarts=0, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 22, 'NO_READY_VNODE': 93, 'PARTITION_FULL': 3},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0]),
+    # --sim leader_failover --scale 1 --arm on: 5.074 s, 516 MiB
+    "leader_failover/on": dict(
+        digest="8b8e883e2ea85c8926b63bfb5939613a1d959a0d6b578d1a89e6e2f36b81b400",
+        final_state_digest="72a7c8aed347e1052f6e21f01c90ab96518095cf32e055dd49c37f4e9e06f126",
+        final_outcome_digest="d608d710f6f385a3d56165d2b623e42fd08149e32e0d36ae557aaff7b0e27e42",
+        bound_total=800, violations=0, recovery_ticks=0, restarts=2, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'NO_READY_VNODE': 99},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]),
+    # --sim agent_crash --scale 1 --arm on: 1.831 s, 474 MiB
+    "agent_crash/on": dict(
+        digest="4b7df131220363f77e1661cbb8e60ffd0ea311d045c0e16341b3a869065d5868",
+        final_state_digest="76dcfaaa026a1939cef602cfa9f473d4535b066ec16ddc76e605bb86827e00c8",
+        final_outcome_digest="ed6b52d1e547bd1de141c5d2686d6ac5fd24441d2ceb906b4990c3d3488eb795",
+        bound_total=759, violations=0, recovery_ticks=12, restarts=0, agent_restarts=1,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 21, 'NO_READY_VNODE': 101, 'PARTITION_FULL': 38},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1]),
+    # --sim agent_crash --scale 1 --arm crash_free: 2.264 s, 492 MiB
+    "agent_crash/crash_free": dict(
+        digest="ed8ed8c015bb3349a8c757b1ec586689e07f93d5f9a636e2551882c9a0aa6c8c",
+        final_state_digest="76dcfaaa026a1939cef602cfa9f473d4535b066ec16ddc76e605bb86827e00c8",
+        final_outcome_digest="ed6b52d1e547bd1de141c5d2686d6ac5fd24441d2ceb906b4990c3d3488eb795",
+        bound_total=759, violations=0, recovery_ticks=None, restarts=0, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 21, 'NO_READY_VNODE': 101, 'PARTITION_FULL': 38},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1]),
+    # --sim chaos_dual_crash --scale 1 --arm on: 3.646 s, 488 MiB
+    "chaos_dual_crash/on": dict(
+        digest="1a67ffa863dbb9187bfc28929097cb76d88167315034ab0c2f100b7b08a1f36a",
+        final_state_digest="017a277c783922bf6c859e175a709e7fc88ffbbc77748ce3aa1cff239af6baf2",
+        final_outcome_digest="649566933bbf08e956f589cc68a9105c3e6ed0bef47040f4361f35af61774473",
+        bound_total=900, violations=0, recovery_ticks=5, restarts=1, agent_restarts=1,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 11, 'NO_READY_VNODE': 115, 'PARTITION_FULL': 11},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0]),
+    # --sim chaos_dual_crash --scale 1 --arm crash_free: 3.0 s, 490 MiB
+    "chaos_dual_crash/crash_free": dict(
+        digest="b5e5675ebd4e16aab84257d0a662933cca36a81308c7c7b6cb455a2b5a62f845",
+        final_state_digest="017a277c783922bf6c859e175a709e7fc88ffbbc77748ce3aa1cff239af6baf2",
+        final_outcome_digest="649566933bbf08e956f589cc68a9105c3e6ed0bef47040f4361f35af61774473",
+        bound_total=900, violations=0, recovery_ticks=None, restarts=0, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 11, 'NO_READY_VNODE': 115, 'PARTITION_FULL': 11},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0]),
+    # --sim chaos_crash_rpc_flap --scale 1 --arm on: 4.157 s, 506 MiB
+    "chaos_crash_rpc_flap/on": dict(
+        digest="5ab49a79ad1dbdc3753e2ca3b3f753a10760e1050887d5f3d11d4a8b05d25e45",
+        final_state_digest="9236c74c6999a0e0a97feab756133b5108d7aa34d96c0460cc5c2b5491dc2e3f",
+        final_outcome_digest="9818047b63938f226879a0d260ba1273a3020722d462bc79d20c58717467535d",
+        bound_total=900, violations=0, recovery_ticks=0, restarts=1, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=29,
+        wait_reasons={'FRAGMENTED': 5, 'NO_READY_VNODE': 116},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0]),
+    # --sim chaos_crash_rpc_flap --scale 1 --arm crash_free: 3.489 s, 501 MiB
+    "chaos_crash_rpc_flap/crash_free": dict(
+        digest="beb6031e8686a33bccaade2959c82c9f887e02d32b83633e2b14dfd0ab3a2a3e",
+        final_state_digest="9236c74c6999a0e0a97feab756133b5108d7aa34d96c0460cc5c2b5491dc2e3f",
+        final_outcome_digest="9818047b63938f226879a0d260ba1273a3020722d462bc79d20c58717467535d",
+        bound_total=900, violations=0, recovery_ticks=0, restarts=0, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=27,
+        wait_reasons={'FRAGMENTED': 5, 'NO_READY_VNODE': 116},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0]),
+    # --sim chaos_crash_into_vanished_partition --scale 1 --arm on: 4.505 s, 537 MiB
+    "chaos_crash_into_vanished_partition/on": dict(
+        digest="d18682934c4524030cf74a1f184f56a9ba163e355642e3c561556f3cfcf3664b",
+        final_state_digest="42a45c1d159eea89658d07688c231d172f31feddba1d0fad940fdfaa6ca8cf12",
+        final_outcome_digest="25fabf7e559b5d4825ac65b670e25bae9bdaa850a377291e4957b366fbbd57eb",
+        bound_total=789, violations=0, recovery_ticks=0, restarts=1, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 4, 'NO_READY_VNODE': 143},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0]),
+    # --sim chaos_crash_into_vanished_partition --scale 1 --arm crash_free: 3.466 s, 516 MiB
+    "chaos_crash_into_vanished_partition/crash_free": dict(
+        digest="72a5d4d24a09eb9fc84ffd004486f6a7be77e20fb6e9d1cc3b51aec4da1611f1",
+        final_state_digest="42a45c1d159eea89658d07688c231d172f31feddba1d0fad940fdfaa6ca8cf12",
+        final_outcome_digest="25fabf7e559b5d4825ac65b670e25bae9bdaa850a377291e4957b366fbbd57eb",
+        bound_total=789, violations=0, recovery_ticks=0, restarts=0, agent_restarts=0,
+        vnode_deletions=1, rpc_retries=0,
+        wait_reasons={'FRAGMENTED': 4, 'NO_READY_VNODE': 143},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0]),
+    # --sim sharded_smoke --scale 1 --arm on: 6.119 s, 570 MiB
+    "sharded_smoke/on": dict(
+        digest="3d43da9ea6208ff850f924e945278fb063b5943433ce696dcb6667e86c34a520",
+        final_state_digest="8743b41961ba8220227e89b2998f2bfc24f883a72747b1ae91cbcf54eb4e9e98",
+        final_outcome_digest="4b3e1faca52a10d4049a9ab7d7b1a9ded6ddca2404b4f381aa62e99450dc9e7c",
+        bound_total=2372, violations=0, recovery_ticks=None, restarts=0, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0, shard_count=11, reconcile_placed=0,
+        wait_reasons={'FRAGMENTED': 97, 'NO_READY_VNODE': 286, 'PARTITION_FULL': 87},
+        solves=[1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1]),
+    # --sim sharded_gang_split --scale 1 --arm on: 3.943 s, 548 MiB
+    "sharded_gang_split/on": dict(
+        digest="50b2620cf33a3e6d48b9ab22d2b4db39ec89969fc824d98ff5cd15acf436913d",
+        final_state_digest="622954796d9e6f46ef1bbc21323d98bf24d8ecc706997876a78eae90e5c2579b",
+        final_outcome_digest="2af5f8e336aa13c21c084dd600c23ea4472131991ce530e6205c84090f4aefb2",
+        bound_total=400, violations=0, recovery_ticks=None, restarts=0, agent_restarts=0,
+        vnode_deletions=0, rpc_retries=0, shard_count=41, reconcile_placed=230,
+        wait_reasons={'NO_READY_VNODE': 64},
+        solves=[1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0]),
+
 }
 #: The JAX package's ``interactive_storm`` at :data:`STORM_SCALE` with its
 #: streaming admission off (``admission=None``), the auction pinned, on the
@@ -758,12 +986,17 @@ def virtual_scorecard(quality: dict) -> dict:
     return {k: v for k, v in quality.items() if "latency" not in k and k != "fleet_remote"}
 
 
-def arm_scenario(sc, arm: str, policy_config_cls):
+def arm_scenario(sc, arm: str, policy_config_cls, crash_kinds=()):
     """``sc`` under one of :data:`QUALITY_ARMS`, as ``sim/cli.py``'s
-    quality and admission gates build their twins (``policy_config_cls``:
-    either package's ``PolicyConfig``)."""
+    quality, admission and smoke gates build their twins
+    (``policy_config_cls``: either package's ``PolicyConfig``;
+    ``crash_kinds``: for ``crash_free``, either package's
+    ``sim.faults.BRIDGE_KINDS + AGENT_KINDS``)."""
     import dataclasses
 
+    if arm == "crash_free":
+        require(crash_kinds, "the crash-free arm needs the bridge and agent fault kinds")
+        return dataclasses.replace(sc, faults=sc.faults.strip(tuple(crash_kinds)))
     replace = dict(on={}, policy_off=dict(policy=None),
                    backfill_off=dict(policy=policy_config_cls(backfill=False)),
                    admission_off=dict(admission=None), full_tick=dict(incremental=False))[arm]
@@ -796,6 +1029,65 @@ def arm_record(result) -> dict:
                 restarts=d["restarts"], events_sha256=json_digest(d["events"]),
                 scorecard_sha256=json_digest(virtual_scorecard(q)), shape=result.shape,
                 quality=quality_summary(d, q))
+
+
+def fault_record(result) -> dict:
+    """What a fault scenario's run (either package's ``ScenarioResult``)
+    is held to: its digests and bound, the violations, the recovery and
+    restart counts, virtual-node deletions, the RPC retries the retry
+    layer absorbed, the scorecard's wait reasons, and for a sharded run
+    the plan's shard count and what the cross-shard reconcile placed —
+    what ``sim/cli.py``'s ``_smoke`` prints and gates on."""
+    d = result.determinism
+    rec = dict(digest=d["digest"], final_state_digest=d["final_state_digest"],
+               final_outcome_digest=d["final_outcome_digest"], bound_total=d["bound_total"],
+               violations=len(d["invariant_violations"]), recovery_ticks=d["recovery_ticks"],
+               restarts=d["restarts"], agent_restarts=d["agent_restarts"],
+               vnode_deletions=d["vnode_deletions"], rpc_retries=sum(d["rpc_retries"].values()),
+               wait_reasons=dict(result.quality.get("wait_reasons", {})))
+    if "shard" in d:
+        rec.update(shard_count=d["shard"]["shard_count"],
+                   reconcile_placed=d["shard"]["reconcile_placed"])
+    return rec
+
+
+def fault_gates(name: str, sc, rec: dict, twin: dict | None, bridge_kinds, agent_kinds) -> list:
+    """``sim/cli.py``'s ``_smoke`` gates on one run of scenario ``name``
+    (``sc``: the scenario it ran; ``rec``: its :func:`fault_record`;
+    ``twin``: the crash-free twin's record where ``sc.lossless_twin`` asks
+    for one; the kinds: either package's ``sim.faults.BRIDGE_KINDS`` and
+    ``AGENT_KINDS``). The CLI also runs each scenario twice and compares
+    the runs; a run held to the JAX package's digests is held to more
+    than that. Returns (gate, holds, values) for each."""
+    kinds = {f.kind for f in sc.faults.faults}
+    reasons = rec["wait_reasons"]
+    out = [("no invariant violated", rec["violations"] == 0, f"{rec['violations']} violations")]
+    if sc.explain:
+        out.append(("no UNKNOWN wait reason", not reasons.get("UNKNOWN"),
+                    f"{reasons.get('UNKNOWN', 0)} UNKNOWN"))
+    if sc.faults and sc.expect_drain:
+        rt, bound = rec["recovery_ticks"], sc.max_recovery_ticks
+        out.append(("recovered within bound", rt is not None and (bound is None or rt <= bound),
+                    f"{rt} <= {bound}"))
+    if kinds & set(bridge_kinds):
+        out += [("no virtual node deleted", rec["vnode_deletions"] == 0,
+                 f"{rec['vnode_deletions']} deletions"),
+                ("bridge restarted", rec["restarts"] >= 1, f"{rec['restarts']} restarts")]
+    if kinds & set(agent_kinds):
+        out.append(("agent restarted", rec["agent_restarts"] >= 1,
+                    f"{rec['agent_restarts']} agent restarts"))
+    if sc.lossless_twin:
+        key = "final_state_digest" if sc.lossless_twin == "state" else "final_outcome_digest"
+        out.append((f"crash-free twin's {key} equal", twin is not None and twin[key] == rec[key],
+                    f"{rec[key][:16]}… vs {twin[key][:16] if twin else None}…"))
+    if sc.sharding is not None:
+        out.append(("plan shards", rec["shard_count"] >= 2, f"{rec['shard_count']} shards"))
+        if name == "sharded_gang_split":
+            out.append(("cross-shard reconcile placed", rec["reconcile_placed"] > 0,
+                        f"{rec['reconcile_placed']} placed"))
+            if sc.explain:
+                out.append(("wait reasons recorded", bool(reasons), f"{len(reasons)} reasons"))
+    return out
 
 
 class InventoryClient:
@@ -1605,11 +1897,12 @@ def crash_phase(kern, smi: str) -> dict:
     return dict(result=result, ticks=ticks, errs=errs, wall_s=wall_s, first=first)
 
 
-def shard_phase(kern, smi: str, sm_hz: float) -> dict:
+def shard_phase(kern, smi: str, sm_hz: float, settle=None) -> dict:
     """Phase 8: the sharded tick at the headline's full size and its
     steady state (module docstring); ``sm_hz`` is phase 3's SM clock, for
-    the timed solves' issue ceiling. Returns what the kernels line and
-    the summary print."""
+    the timed solves' issue ceiling; ``settle``, if given, is called
+    before those solves are timed (no other process may then use the
+    card). Returns what the kernels line and the summary print."""
     import resource
 
     import slurm_bridge_tpu_torch.solver.session as session
@@ -1708,6 +2001,8 @@ def shard_phase(kern, smi: str, sm_hz: float) -> dict:
                             r["live"].cpu().numpy())
 
     held = sorted({0, max(range(len(tick0)), key=round0_cells)})
+    if settle is not None:
+        settle()
     kernel = []
     for k in held:
         t = time_calls(kern, tick0[k], f"shard solve {k} of tick 0", smi)
@@ -1942,9 +2237,244 @@ def quality_phase(kern, smi: str) -> dict:
                     f"package's run holds it ({ref_values})")
     wall_s = time.perf_counter() - t_phase
     log(f"  placement quality: {len(out)} arms, phase wall {wall_s:.1f} s [{smi}]")
-    return dict(arms=out, errs=errs, wall_s=wall_s,
+    return dict(runs=out, errs=errs, wall_s=wall_s,
                 launches=sum(a["launches"] for a in out.values()),
                 compared=sum(a["compared"] for a in out.values()))
+
+
+def held_fault_ticks(sc, ticks: list, num_nodes: list) -> list:
+    """The ticks of a group A run whose kernel calls phase [16] holds
+    bit-exact: in each of the scenario's fault windows its first and last
+    solving tick, the first solving tick at or after the last window's end
+    (none where every job was bound before it: ``node_churn``), and after
+    a vanished partition the first solving tick whose inventory is whole
+    again (``num_nodes``: each tick's node count in its kernel calls,
+    ``None`` where it made none)."""
+    solving = [i for i, t in enumerate(ticks) if t["solves"]]
+    held = set()
+    for f in sc.faults.faults:
+        inside = [i for i in solving if f.start_tick <= i < f.end_tick]
+        require(inside, f"{sc.name}: no solving tick in its {f.kind} window "
+                        f"[{f.start_tick}, {f.end_tick})")
+        held.update((inside[0], inside[-1]))
+    end = max(f.end_tick for f in sc.faults.faults)
+    after = [i for i in solving if i >= end]
+    if after:
+        held.add(after[0])
+    if any(f.kind == "partition_vanish" for f in sc.faults.faults):
+        whole = [i for i in after if num_nodes[i] == sc.cluster.num_nodes]
+        require(whole, f"{sc.name}: no solving tick with its partition back")
+        held.add(whole[0])
+    return sorted(held)
+
+
+def fault_phase(kern, smi: str) -> dict:
+    """Phase 16: the fault gates (module docstring). Returns what the
+    kernels line and the summary print."""
+    import slurm_bridge_tpu_torch.solver.session as session
+    from slurm_bridge_tpu_torch.policy.engine import PolicyConfig
+    from slurm_bridge_tpu_torch.sim.faults import AGENT_KINDS, BRIDGE_KINDS
+    from slurm_bridge_tpu_torch.sim.scenarios import SCENARIOS
+
+    solves = []
+    real_solve = session.DeviceSolver.solve
+
+    def counted_solve(self, batch, *a, **kw):
+        before = kern.LAUNCHES
+        out = real_solve(self, batch, *a, **kw)
+        solves.append(kern.LAUNCHES - before)
+        return out
+
+    out, errs, t_phase = {}, [], time.perf_counter()
+    session.DeviceSolver.solve = counted_solve
+    try:
+        for name, cell in FAULT_CELLS.items():
+            base = SCENARIOS[name](scale=cell["scale"])
+            records = {}
+            for arm in ("on", "crash_free") if base.lossless_twin else ("on",):
+                label = f"{name}@{cell['scale']} {arm}"
+                want = FAULT_REFERENCE[f"{name}/{arm}"]
+                sc = pin_auction(arm_scenario(base, arm, PolicyConfig,
+                                              crash_kinds=BRIDGE_KINDS + AGENT_KINDS))
+                rounds = sc.auction_config.rounds
+                hold = cell.get("hold", False) and arm == "on"
+                keep = range(min(f.start_tick for f in sc.faults.faults), sc.ticks) if hold else ()
+                solves.clear()
+                run = run_sim(kern, smi, sc, label, keep=keep)
+                result, ticks = run["result"], run["ticks"]
+                got = dict(fault_record(result), solves=[t["solves"] for t in ticks])
+                records[arm] = got
+                for key, value in want.items():
+                    require(got[key] == value,
+                            f"{label}: {key} {got[key]} differs from the JAX package's {value}")
+                # each device solve (each shard's, on a sharded run) launches
+                # the kernel once per round, and nothing else launches it
+                launches = sum(t["launches"] for t in ticks)
+                require(solves and all(s == rounds for s in solves),
+                        f"{label}: device solves launched {sorted(set(solves))} kernels, not "
+                        f"{rounds}")
+                require(launches == rounds * len(solves),
+                        f"{label}: {launches} launches for {len(solves)} device solves")
+                for i, t in enumerate(ticks):
+                    ok = (t["launches"] % rounds == 0 and bool(t["launches"]) == bool(t["solves"])
+                          if sc.sharding is not None else t["launches"] == rounds * t["solves"])
+                    require(ok, f"{label} tick {i}: {t['launches']} kernel launches for "
+                                f"{t['solves']} solves of {rounds} rounds")
+                compared, held = 0, []
+                if hold:
+                    kept = run["kept"]
+                    num_nodes = [kept[i][0]["kw"]["num_nodes"] if kept.get(i) else None
+                                 for i in range(len(ticks))]
+                    held = held_fault_ticks(sc, ticks, num_nodes)
+                    for i in held:
+                        calls = kept[i]
+                        require(len(calls) == rounds * ticks[i]["solves"],
+                                f"{label}: {len(calls)} kernel calls kept on tick {i}")
+                        for j, r in enumerate(calls):
+                            p, n = r["args"][4].shape[0], r["kw"]["num_nodes"]
+                            node_part, job_part, live = r["args"][1], r["args"][5], r["live"]
+                            # the node order's partitions (ops/bid_argmax.py:node_order)
+                            k = max(int(node_part.max()) + 1, 0) if node_part.numel() else 0
+                            errs.append(compare_recorded(kern, r, f"{label} tick {i} call {j} "
+                                                                  f"({n},{p})"))
+                            log(f"    live rows {int(live.sum())} of {p}: wildcard (-1) "
+                                f"{int((live & (job_part < 0)).sum())}, past the {k} node "
+                                f"partitions {int((live & (job_part >= k)).sum())}")
+                        compared += len(calls)
+                tm = result.timing
+                rec_ms = tm.get("recovery_ms") or []
+                log(f"  {label}: {len(ticks)} ticks, tick p50 {tm['tick_p50_ms']:.1f} ms, bound "
+                    f"{got['bound_total']}, recovery ticks {got['recovery_ticks']}, restarts "
+                    f"{got['restarts']} (agent {got['agent_restarts']}), restart ms "
+                    f"{[round(x, 1) for x in rec_ms]}, RPC retries {got['rpc_retries']}"
+                    + (f", shards {got['shard_count']}, reconcile placed {got['reconcile_placed']}"
+                       if "shard_count" in got else "")
+                    + f"; kernel launches {launches} over {len(solves)} device solves, calls held "
+                    f"bit-exact {compared} (ticks {held}); equal to the JAX package's; run wall "
+                    f"{run['wall_s']:.1f} s [{smi}]")
+                out[label] = dict(result=result, ticks=ticks, wall_s=run["wall_s"],
+                                  launches=launches, compared=compared, record=got,
+                                  recovery_ms=rec_ms)
+            for gate, holds, values in fault_gates(name, base, records["on"],
+                                                   records.get("crash_free"), BRIDGE_KINDS,
+                                                   AGENT_KINDS):
+                log(f"  {name}@{cell['scale']} gate {gate}: {'holds' if holds else 'MISSED'} "
+                    f"({values})")
+                require(holds, f"{name}@{cell['scale']}: gate {gate} missed ({values})")
+    finally:
+        session.DeviceSolver.solve = real_solve
+    wall_s = time.perf_counter() - t_phase
+    log(f"  fault gates: {len(out)} runs, phase wall {wall_s:.1f} s [{smi}]")
+    return dict(runs=out, errs=errs, wall_s=wall_s,
+                launches=sum(r["launches"] for r in out.values()),
+                compared=sum(r["compared"] for r in out.values()))
+
+
+#: Phases [15] and [16], which a second process of this script runs
+#: (:func:`late_phases`): (key, the phase's first line, the phase).
+LATE_PHASES = (
+    ("quality", "[15] main path: the simulator's placement-quality scenarios (priority_inversion, "
+     "multi_tenant_storm, diurnal_load, elastic_resize) and their policy-off, backfill-off and "
+     "full-tick arms at the headline's cluster width through the port's full bridge loop",
+     quality_phase),
+    ("fault", "[16] main path: the simulator's fault scenarios (a vanished partition and drained "
+     "nodes at half and a quarter of the headline's cluster width; RPC flaps, a preemption "
+     "storm, bridge and agent crashes, a leader failover and the sharded fan-out at scale 1, with "
+     "the crash-free twins) through the port's full bridge loop", fault_phase),
+)
+#: How long that process may take, from its start (beside phase [6]) to
+#: its exit.
+LATE_DEADLINE_S = 900
+
+
+def late_phases(out_path: str) -> int:
+    """``chip_smoke.py --late-phases OUT``: phases [15] and [16] in a
+    second process, which the run starts beside phases [6]-[8] — host-bound
+    simulator runs, which time no kernel while it runs — so the run's wall
+    is the longer of the two and not their sum. Each phase is driven with
+    this process's launch count set to 0 just before it and read just
+    after. Prints the phases' lines and writes what the run's checks,
+    kernels line and summary read of them to OUT as JSON."""
+    import slurm_bridge_tpu_torch.ops.bid_argmax as kern
+    from slurm_bridge_tpu_torch.parallel import colpool
+
+    smi = smi_line()
+    out = {}
+    for key, header, phase in LATE_PHASES:
+        log(header)
+        kern.LAUNCHES = 0
+        res = phase(kern, smi)
+        launches = kern.LAUNCHES
+        require(launches > 0 and launches == res["launches"],
+                f"{launches} kernel launches in the {key} phase")
+        out[key] = dict(launches=launches, compared=res["compared"], wall_s=res["wall_s"],
+                        max_err=max(res["errs"], default=0.0), runs={
+                            label: dict(ticks=[t["launches"] for t in r["ticks"]],
+                                        tick_p50_ms=r["result"].timing["tick_p50_ms"],
+                                        phases_p50_ms=r["result"].timing["phases_p50_ms"],
+                                        launches=r["launches"], wall_s=r["wall_s"],
+                                        summary=r.get("summary"), record=r.get("record"),
+                                        recovery_ms=r.get("recovery_ms"))
+                            for label, r in res["runs"].items()})
+    colpool.reset()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class LatePhases:
+    """The second process running :data:`LATE_PHASES`: started beside
+    phase [6], waited for (:meth:`join`) before any later phase times a
+    kernel, its output printed in its phases' place (:meth:`result`), and
+    killed if the run ends first."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip-smoke-late-")
+        self.out = os.path.join(self.dir, "late.json")
+        self._log = open(os.path.join(self.dir, "late.log"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--late-phases", self.out],
+            stdout=self._log, stderr=subprocess.STDOUT)
+        self.wall_s = None
+        atexit.register(self.stop)
+
+    def join(self) -> None:
+        if self.wall_s is not None:
+            return
+        try:
+            self.proc.wait(timeout=max(1.0, self.t0 + LATE_DEADLINE_S - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.wall_s = time.perf_counter() - self.t0
+
+    def result(self) -> dict:
+        """Print the process's lines; fail unless it exited 0. Returns
+        what it wrote (:func:`late_phases`)."""
+        self.join()
+        self._log.seek(0)
+        sys.stdout.write(self._log.read())
+        log(f"  (phases [15]-[16] ran in a second process beside phases [6]-[8]: "
+            f"{self.wall_s:.1f} s from its start to its exit)")
+        require(self.proc.returncode == 0,
+                f"the process of phases [15]-[16] exited {self.proc.returncode} (deadline "
+                f"{LATE_DEADLINE_S} s)")
+        with open(self.out) as f:
+            return json.load(f)
+
+    def stop(self) -> None:
+        """Kill the process if it still runs, and remove its files."""
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def churn_phase(kern, smi: str) -> dict:
@@ -2662,6 +3192,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--sweep-rank"]:
         return sweep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--late-phases"]:
+        return late_phases(sys.argv[2])
     import slurm_bridge_tpu_torch.ops.bid_argmax as kern
     from slurm_bridge_tpu_torch.parallel.backend import ensure_backend
     from slurm_bridge_tpu_torch.solver import AuctionConfig, DeviceSolver, auction_place
@@ -2829,6 +3361,10 @@ def main() -> int:
     require(tick_launches == ROUNDS * 3, f"{tick_launches} kernel launches in the tick phase")
     errs += tick["errs"]
 
+    # 15-16 in a second process beside 6-8, which time no kernel; it ends
+    # before phase 8 times its shard solves
+    late = LatePhases()
+
     # 6. the bridge's job lifecycle on the simulated cluster at full width
     log("[6] main path: the simulator's full_50kx10k_steady (full_50kx10k and three more ticks) "
         "through the port's full bridge loop")
@@ -2851,7 +3387,7 @@ def main() -> int:
     log("[8] main path: the simulator's full_500kx100k_steady uncut (100,000 nodes, 500,000 "
         "jobs, 6 ticks) with the shard executor's fan-out")
     kern.LAUNCHES = 0
-    shard = shard_phase(kern, smi, sm_mhz * 1e6)
+    shard = shard_phase(kern, smi, sm_mhz * 1e6, settle=late.join)
     shard_launches = shard["launches"]
     require(shard_launches > 0, "no kernel launch in the sharded phase")
     errs += shard["errs"]
@@ -2913,18 +3449,17 @@ def main() -> int:
     require(storm_launches > 0, "no kernel launch in the admission phase")
     errs += storm["errs"]
 
-    # 15. the policy tick with preemption: the placement-quality arms
-    log("[15] main path: the simulator's placement-quality scenarios (priority_inversion, "
-        "multi_tenant_storm, diurnal_load, elastic_resize) and their policy-off, backfill-off "
-        "and full-tick arms at the headline's cluster width through the port's full bridge loop")
-    kern.LAUNCHES = 0
-    quality = quality_phase(kern, smi)
-    quality_launches = kern.LAUNCHES
-    require(quality_launches > 0 and quality_launches == quality["launches"],
-            f"{quality_launches} kernel launches in the quality phase")
-    errs += quality["errs"]
+    # 15. the policy tick with preemption: the placement-quality arms, and
+    # 16. the fault gates: the JAX package's chaos, fault and shard
+    # scenarios — from the second process
+    late_out = late.result()
+    quality, fault = late_out["quality"], late_out["fault"]
+    quality_launches, fault_launches = quality["launches"], fault["launches"]
+    require(quality_launches > 0 and fault_launches > 0,
+            f"{quality_launches} and {fault_launches} kernel launches in phases [15] and [16]")
+    errs += [quality["max_err"], fault["max_err"]]
 
-    # 16. the JAX package's result on the reduced scenario
+    # 17. the JAX package's result on the reduced scenario
     ref_snap, ref_batch = random_scenario(
         REFERENCE["nodes"], REFERENCE["jobs"], seed=42, load=0.7,
         gpu_fraction=0.15, gang_fraction=0.05,
@@ -2935,18 +3470,18 @@ def main() -> int:
     ref_jobs = len(ref_pl.by_job(ref_batch))
     rel = abs(ref_jobs - REFERENCE["placed_jobs"]) / REFERENCE["placed_jobs"]
     match = digest(ref_pl.node_of) == REFERENCE["node_of_sha256"]
-    log(f"[16] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
+    log(f"[17] reduced scenario {REFERENCE['nodes']}x{REFERENCE['jobs']}: placed jobs {ref_jobs} "
         f"vs JAX {REFERENCE['placed_jobs']} (rel {rel:.5f}); node_of digest matches JAX: {match}")
     require(rel <= 0.005, rel)
 
-    # 17. times
+    # 18. times
     p50 = statistics.median(wall_ms)
-    log(f"[17] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
+    log(f"[18] [{smi}] headline solve p50 {p50:.1f} ms over {len(wall_ms)} "
         f"(min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); kernel {kernel_ms:.4f} ms/launch "
         f"(bound {bound_ms:.4f}, ceiling {ceiling_ms:.4f}), {ms_per_solve:.4f} ms per solve; "
         f"total run {time.perf_counter() - t_start:.0f} s")
     for i, t in enumerate(tick["ticks"]):
-        log(f"[17] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
+        log(f"[18] [{smi}] headline tick {i + 1}: wall {t['wall_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in t["phase_ms"].items())
             + f"; {t['launches']} kernel launches")
     for label, run, launches in (("full_50kx10k_steady", sim, sim_launches),
@@ -2954,18 +3489,18 @@ def main() -> int:
                                  ("full_500kx100k_steady", shard, shard_launches),
                                  ("interactive_storm", storm, storm_launches)):
         tm = run["result"].timing
-        log(f"[17] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
+        log(f"[18] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
             + f" (p50 over {len(run['ticks'])} ticks); {launches} kernel launches; "
             f"phase wall {run['wall_s']:.1f} s")
     for label, run in (("full_50kx10k_steady", sim), ("full_500kx100k_steady", shard)):
         st = run["steady"]
-        log(f"[17] [{smi}] {label}: steady ticks {st['ticks']}, steady tick p50 {st['p50_ms']:.3f} "
+        log(f"[18] [{smi}] {label}: steady ticks {st['ticks']}, steady tick p50 {st['p50_ms']:.3f} "
             f"ms (gate {st['gate_ms']:.0f} ms), each: "
             + "; ".join(f"tick {i} " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                 run["ticks"][i]["phases"].items()) + " ms"
                         for i in st["ticks"]))
-    log(f"[17] [{smi}] interactive_storm: fast binds {storm['admission']['binds']}, misses "
+    log(f"[18] [{smi}] interactive_storm: fast binds {storm['admission']['binds']}, misses "
         f"{storm['admission']['misses']}, interactive arrival-to-bind p50 "
         f"{storm['result'].quality['interactive_latency_p50_ms']} / p99 "
         f"{storm['result'].quality['interactive_latency_p99_ms']} ms, one fast admission's wall "
@@ -2973,15 +3508,26 @@ def main() -> int:
         f"twin: utilization {storm['twin']['result'].quality['utilization_mean']} (on "
         f"{storm['result'].quality['utilization_mean']}), tick p50 "
         f"{storm['twin']['result'].timing['tick_p50_ms']:.1f} ms, wall {storm['twin']['wall_s']:.1f} s")
-    for label, arm in quality["arms"].items():
-        tm, sm = arm["result"].timing, arm["summary"]
-        log(f"[17] [{smi}] {label}: tick p50 {tm['tick_p50_ms']:.1f} ms, "
-            + ", ".join(f"{k} {v:.1f} ms" for k, v in tm["phases_p50_ms"].items())
+    for label, arm in quality["runs"].items():
+        sm = arm["summary"]
+        log(f"[18] [{smi}] {label}: tick p50 {arm['tick_p50_ms']:.1f} ms, "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in arm["phases_p50_ms"].items())
             + f" (p50 over {len(arm['ticks'])} ticks); preempted {sm['preempted_total']}, "
             f"backfill binds {sm['backfill_binds']}, Jain {sm['jain_fairness']}, utilization "
             f"{sm['utilization_mean']}, production wait p95 {sm['production_wait_p95']}; "
             f"{arm['launches']} kernel launches; arm wall {arm['wall_s']:.1f} s")
-    log(f"[17] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; full_500kx100k: "
+    for label, run in fault["runs"].items():
+        rec = run["record"]
+        log(f"[18] [{smi}] {label}: tick p50 {run['tick_p50_ms']:.1f} ms, "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in run["phases_p50_ms"].items())
+            + f" (p50 over {len(run['ticks'])} ticks); recovery ticks {rec['recovery_ticks']}, "
+            f"restarts {rec['restarts']} (agent {rec['agent_restarts']}), restart ms "
+            f"{[round(x, 1) for x in run['recovery_ms']]}; {run['launches']} kernel launches; "
+            f"run wall {run['wall_s']:.1f} s")
+    log(f"[18] [{smi}] fault gates: phase wall {fault['wall_s']:.1f} s, {fault_launches} kernel "
+        f"launches, {fault['compared']} calls held bit-exact; phases [15]-[16] in their own "
+        f"process beside phases [6]-[8], {late.wall_s:.1f} s from its start to its exit")
+    log(f"[18] [{smi}] recovery_ms {crash['result'].timing['recovery_ms']}; full_500kx100k: "
         f"{len(shard['sizes'])} shards of {shard['sizes']} nodes, shard solves "
         f"{[round(sv['ms'], 1) for sv in shard['solves']]} ms, kernel per solve of tick 0's shard "
         f"solves {shard['held']}: {[round(k['ms_per_solve'], 4) for k in shard['kernel']]} ms; "
@@ -2989,21 +3535,21 @@ def main() -> int:
         f"phase-sum drift {shard['drift']:.2f} % (gate ±{shard['drift_gate']} %); device memory "
         f"peak {shard['device_peak'] / 2**20:.1f} MiB, host peak RSS "
         f"{shard['host_peak'] / 2**20:.0f} MiB")
-    log(f"[17] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
+    log(f"[18] [{smi}] streaming reschedule: churn tick p50 {churn['p50_ms']:.1f} ms, "
         f"re-solve ms {[round(t['solve_ms'], 1) for t in churn['ticks']]}, "
         f"{churn_launches} kernel launches, kernel {churn['kernel']['ms_per_solve']:.4f} ms per "
         f"solve on churn tick 1; auto route {churn['auto_route']}")
-    log(f"[17] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
+    log(f"[18] [{smi}] sidecar Place ms {[round(t['wall_ms'], 1) for t in sidecar['places']]} "
         f"(solve {[round(t['solve_ms'], 1) for t in sidecar['places']]}), "
         f"{sidecar_launches} kernel launches, kernel {sidecar['kernel']['ms_per_solve']:.4f} ms "
         f"per solve on Place 0")
     tk = daemons["tick"]
-    log(f"[17] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
+    log(f"[18] [{smi}] bridge daemons: placing tick {tk['wall_ms']:.1f} ms ("
         + ", ".join(f"{k} {v:.1f} ms" for k, v in tk["phase_ms"].items())
         + f"), kernel {daemons['kernel']['ms_per_solve']:.4f} ms over {ROUNDS} launches; "
         f"{BRIDGE['num_jobs']} jobs submit to last Succeeded {daemons['wall_s']:.1f} s; "
         f"{daemons_launches} kernel launches")
-    log(f"[17] [{smi}] multi-device sweep ({SWEEP['dp']}x{SWEEP['mp']} cuda:0 blocks): solve "
+    log(f"[18] [{smi}] multi-device sweep ({SWEEP['dp']}x{SWEEP['mp']} cuda:0 blocks): solve "
         f"wall {[round(w, 1) for w in sweep['walls']]} ms, kernel {sweep['ms_per_solve']:.4f} ms "
         f"per solve over {sweep['solve_launches'][0]} block launches, combine and gathers "
         f"{sum(sweep['combine_ms']):.4f} ms per solve; forced-sharded tick "
@@ -3011,7 +3557,7 @@ def main() -> int:
         f"{[[round(sv['wall_ms'], 1) for sv in rk['solves']] for rk in sweep['ranks']]} ms; "
         f"{sweep_launches} kernel launches")
     c4, c2 = base["config4"], base["config2"]
-    log(f"[17] [{smi}] BASELINE config #4: solve p50 {c4['p50_ms']:.1f} ms, kernel "
+    log(f"[18] [{smi}] BASELINE config #4: solve p50 {c4['p50_ms']:.1f} ms, kernel "
         f"{c4['ms_per_solve']:.4f} ms per solve over {c4['launches_per_solve']} launches "
         f"(bound {c4['solve_bound']:.4f}, ceiling {c4['solve_ceiling']:.4f}), "
         f"{c4['launch_ms']:.4f} ms all-live launch, device memory peak {c4['peak'] / 2**20:.1f} "
@@ -3038,12 +3584,15 @@ def main() -> int:
         + [t["launches"] for t in sim["ticks"]] + [t["launches"] for t in crash["ticks"]]
         + [t["launches"] for t in shard["ticks"]] + [t["launches"] for t in storm["ticks"]]
         + [t["launches"] for t in storm["twin"]["ticks"]]
-        + [t["launches"] for arm in quality["arms"].values() for t in arm["ticks"]],
+        + [n for arm in quality["runs"].values() for n in arm["ticks"]]
+        + [n for run in fault["runs"].values() for n in run["ticks"]],
         "launches_per_steady_tick": [sim["ticks"][i]["launches"] for i in sim["steady"]["ticks"]]
         + [shard["ticks"][i]["launches"] for i in shard["steady"]["ticks"]],
         "launches_storm_phase": storm_launches,
         "launches_quality_phase": quality_launches,
         "quality_calls_compared": quality["compared"],
+        "launches_fault_phase": fault_launches,
+        "fault_calls_compared": fault["compared"],
         "launches_per_shard_solve": [sv["launches"] for sv in shard["solves"]],
         "shard_solves_timed": shard["held"],
         "shard_kernel_ms_per_solve": [k["ms_per_solve"] for k in shard["kernel"]],

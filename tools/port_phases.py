@@ -1,12 +1,13 @@
 """chip_smoke.py's simulator phases alone on the card, each run to its end.
 
-    python3 tools/port_phases.py [sim] [shard] [storm] [quality]
+    python3 tools/port_phases.py [sim] [shard] [storm] [quality] [fault]
 
 Builds the kernel, then runs phase [6] (``sim``: ``full_50kx10k_steady``),
 [8] (``shard``: ``full_500kx100k_steady``, with its deadline lifted),
 [14] (``storm``: ``interactive_storm`` at scale 40 and its admission-off
-twin) and [15] (``quality``: the placement-quality arms) — all four by
-default — with every check chip_smoke.py makes, going on to the next
+twin), [15] (``quality``: the placement-quality arms) and [16]
+(``fault``: the fault gates) — all five by default — with every check
+chip_smoke.py makes, going on to the next
 phase when one fails. After phases [6] and [8] it prints the flight
 record's span tree of ticks 3-5 (the last solving tick and the steady
 ticks): where a steady tick's time goes, down to each span's counters.
@@ -32,6 +33,7 @@ PHASES = {
     "shard": lambda kern, smi: cs.shard_phase(kern, smi, sm_hz=1.98e9),
     "storm": lambda kern, smi: cs.storm_phase(kern, smi),
     "quality": lambda kern, smi: cs.quality_phase(kern, smi),
+    "fault": lambda kern, smi: cs.fault_phase(kern, smi),
 }
 #: the ticks whose span trees print: the last solving tick, the steady ones
 TREE_TICKS = range(3, 6)

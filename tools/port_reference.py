@@ -36,10 +36,17 @@ arrival-to-bind p50 and p99. Every run prints chip_smoke.py's
 ``arm_record`` of it: besides the digests and bound, its
 ``preempted_total``, restarts, the events' and the scorecard's digests
 (the scorecard without its wall-clock latencies) and the numbers the
-quality gates read. ``--arm`` runs the scenario's twin
+quality gates read, and its ``fault`` block (chip_smoke.py's
+``fault_record``: the final outcome digest, violations, recovery ticks,
+restarts, agent restarts, virtual-node deletions, the RPC retries, the
+scorecard's wait reasons and, sharded, the shard count and reconcile
+count) and each tick's ``solves``. ``--arm`` runs the scenario's twin
 (chip_smoke.py's ``arm_scenario``): ``policy_off`` (``policy=None``),
 ``backfill_off`` (``PolicyConfig(backfill=False)``), ``admission_off``
-(``admission=None``) or ``full_tick`` (``incremental=False``). A
+(``admission=None``), ``full_tick`` (``incremental=False``) or
+``crash_free`` (the bridge and agent crashes stripped from its fault plan:
+the twin ``sim/cli.py``'s smoke gate compares a ``lossless_twin``
+scenario's final digests with). A
 scenario that sets its own ``backend="auction"`` and ``auction_config``
 (``diurnal_load``: 2 rounds, repair off, 1 salvage round) keeps them,
 with only ``candidates=0, use_pallas=False`` pinned.
@@ -100,8 +107,8 @@ sampled auction path (K hash-drawn candidates per shard from its
 ``random_scenario`` run (``rounds=8``).
 
 chip_smoke.py holds the port's solve, tick, simulator, streaming, sidecar,
-sweep, BASELINE-config and placement-quality runs on the card to these
-numbers.
+sweep, BASELINE-config, placement-quality and fault runs on the card to
+these numbers.
 
     JAX_PLATFORMS=cpu python tools/port_reference.py --nodes 2000 --jobs 10000
     JAX_PLATFORMS=cpu python tools/port_reference.py --tick --nodes 10000 --jobs 50000
@@ -113,6 +120,8 @@ numbers.
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim interactive_storm --scale 40
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim interactive_storm --scale 40 --arm admission_off
     JAX_PLATFORMS=cpu python tools/port_reference.py --sim priority_inversion --scale 80 --arm policy_off
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim partition_vanish --scale 32
+    JAX_PLATFORMS=cpu python tools/port_reference.py --sim crash_restart --scale 2 --arm crash_free
     JAX_PLATFORMS=cpu python tools/port_reference.py --churn
     JAX_PLATFORMS=cpu python tools/port_reference.py --place --nodes 10000 --jobs 50000
     JAX_PLATFORMS=cpu python tools/port_reference.py --bridge
@@ -163,6 +172,7 @@ from chip_smoke import (  # noqa: E402
     churn_tick,
     drained_request,
     fake_cluster,
+    fault_record,
     place_digest,
     place_request,
     response_digest,
@@ -217,10 +227,12 @@ def run_sim(name: str, scale: float, arm: str = "on") -> dict:
     import dataclasses
 
     from slurm_bridge_tpu.policy.engine import PolicyConfig
+    from slurm_bridge_tpu.sim.faults import AGENT_KINDS, BRIDGE_KINDS
     from slurm_bridge_tpu.sim.harness import SimHarness
     from slurm_bridge_tpu.sim.scenarios import SCENARIOS
 
-    sc = arm_scenario(SCENARIOS[name](scale=scale), arm, PolicyConfig)
+    sc = arm_scenario(SCENARIOS[name](scale=scale), arm, PolicyConfig,
+                      crash_kinds=BRIDGE_KINDS + AGENT_KINDS)
     if sc.backend == "auction" and sc.auction_config is not None:
         # the scenario's own auction: its rounds, repair and salvage kept
         cfg = dataclasses.replace(sc.auction_config, candidates=0, use_pallas=False)
@@ -254,8 +266,9 @@ def run_sim(name: str, scale: float, arm: str = "on") -> dict:
     out = {
         "sim": name, "scale": scale, "arm": arm, "config": config,
         **arm_record(r),
+        "fault": fault_record(r),
+        "solves": [m["solves"] for m in h._tick_meta],
         "invariant_violations": len(d["invariant_violations"]),
-        "vnode_deletions": d["vnode_deletions"],
         "cpu_seconds_wall": round(time.perf_counter() - t0, 3),
         "tick_p50_ms": r.timing["tick_p50_ms"],
         "phases_p50_ms": r.timing["phases_p50_ms"],
@@ -424,7 +437,8 @@ def main() -> None:
                     help="the --sim scenario's scale")
     ap.add_argument("--arm", choices=QUALITY_ARMS, default="on",
                     help="the --sim scenario's arm: policy off, backfill off, admission "
-                    "off or the full (non-incremental) tick (default: as defined)")
+                    "off, the full (non-incremental) tick or the bridge and agent crashes "
+                    "stripped (default: as defined)")
     ap.add_argument("--churn", action="store_true",
                     help="run the streaming reschedule at chip_smoke.py's CHURN shape")
     ap.add_argument("--place", action="store_true",
