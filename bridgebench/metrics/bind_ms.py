@@ -1,0 +1,7 @@
+"""bind_ms: the phase clock's "bind" time, window mean per tick."""
+
+from bblib.readers import tick_mean
+
+
+def read(run):
+    return tick_mean(run, "bind")

@@ -1,0 +1,7 @@
+"""encode_ms: the phase clock's "encode" time, window mean per tick."""
+
+from bblib.readers import tick_mean
+
+
+def read(run):
+    return tick_mean(run, "encode")

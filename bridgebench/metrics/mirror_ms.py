@@ -1,0 +1,7 @@
+"""mirror_ms: the phase clock's "mirror" time, window mean per tick."""
+
+from bblib.readers import tick_mean
+
+
+def read(run):
+    return tick_mean(run, "mirror")

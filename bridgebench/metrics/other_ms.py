@@ -1,0 +1,7 @@
+"""other_ms: the phase clock's "other" time, window mean per tick."""
+
+from bblib.readers import tick_mean
+
+
+def read(run):
+    return tick_mean(run, "other")

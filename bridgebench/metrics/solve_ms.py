@@ -1,0 +1,7 @@
+"""solve_ms: the phase clock's "solve" time, window mean per tick."""
+
+from bblib.readers import tick_mean
+
+
+def read(run):
+    return tick_mean(run, "solve")

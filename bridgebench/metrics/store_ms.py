@@ -1,0 +1,7 @@
+"""store_ms: the phase clock's "store" time, window mean per tick."""
+
+from bblib.readers import tick_mean
+
+
+def read(run):
+    return tick_mean(run, "store")
