@@ -68,7 +68,7 @@ from slurm_bridge_tpu_torch.core.sbatch import extract_batch_resources
 from slurm_bridge_tpu_torch.core.types import JobDemand
 from slurm_bridge_tpu_torch.obs.events import EventRecorder, Reason
 from slurm_bridge_tpu_torch.obs.metrics import REGISTRY
-from slurm_bridge_tpu_torch.obs.tracing import TRACER, current_span
+from slurm_bridge_tpu_torch.obs.tracing import TRACER
 from slurm_bridge_tpu_torch.parallel import colpool, writeops
 from slurm_bridge_tpu_torch.policy.classes import (
     CLASS_LABEL as _CLASS_LABEL,
@@ -291,18 +291,9 @@ class BridgeOperator:
     # ---- the reconcile ----
 
     def reconcile(self, job_name: str) -> Result | None:
+        # no span per job: the controller thread's ``{name}.reconcile``
+        # span covers its keys, and the sweep counts the ones it settles
         t0 = time.perf_counter()
-        # join an active SAMPLED trace only: a controller-thread reconcile
-        # with no ambient span (production steady state) — or one inside a
-        # trace the sampler discarded — pays one contextvar read, not a
-        # span build per reconcile
-        ambient = current_span()
-        if ambient is not None and ambient.sampled:
-            with TRACER.span("operator.reconcile", job=job_name):
-                try:
-                    return self._reconcile(job_name)
-                finally:
-                    _reconcile_seconds.observe(time.perf_counter() - t0)
         try:
             return self._reconcile(job_name)
         finally:
@@ -332,7 +323,7 @@ class BridgeOperator:
 
     # ---- the dirty-set batch sweep (PR-4 cold-start path) ----
 
-    def sweep(self, names) -> list[str]:
+    def sweep(self, names, *, settle: bool = False) -> list[str]:
         """Batch reconcile of a dirty owner set — the cold-start path.
 
         Semantically N single reconciles (the fuzzed equivalence test in
@@ -348,14 +339,25 @@ class BridgeOperator:
         validation failures, finished jobs (the result-fetch path owns
         requeue timing), vanished sizecars, and commit conflicts. Callers
         route those to :meth:`reconcile`, the single-key correctness
-        oracle and the fallback for everything unusual.
+        oracle and the fallback for everything unusual. With ``settle``
+        the sweep does so itself, in order and inside its span (counted
+        as its ``reconciles`` and ``reconcile_ms``), and returns nothing.
         """
         with TRACER.span("operator.sweep") as span:
             jt = self.store.table(BridgeJob.KIND)
             pt = self.store.table(Pod.KIND)
             if jt is not None and pt is not None:
-                return self._sweep_cols(span, names, jt, pt)
-            return self._sweep(span, names)
+                slow = self._sweep_cols(span, names, jt, pt)
+            else:
+                slow = self._sweep(span, names)
+            if not settle:
+                return slow
+            t0 = time.perf_counter()
+            for key in slow:
+                self.reconcile(key)
+            span.count("reconciles", len(slow))
+            span.count("reconcile_ms", (time.perf_counter() - t0) * 1e3)
+            return []
 
     def _sweep(self, span, names) -> list[str]:
         t0 = time.perf_counter()

@@ -50,7 +50,7 @@ from slurm_bridge_tpu_torch.obs.events import EventRecorder, Reason
 from slurm_bridge_tpu_torch.obs.metrics import REGISTRY
 from slurm_bridge_tpu_torch.obs.metrics import Histogram
 from slurm_bridge_tpu_torch.obs.tracing import TRACER
-from slurm_bridge_tpu_torch.solver import AuctionConfig, greedy_place
+from slurm_bridge_tpu_torch.solver import AuctionConfig, auction, greedy_place
 from slurm_bridge_tpu_torch.solver.encoder import EncodedInventory, JobRowCache
 from slurm_bridge_tpu_torch.solver.session import DeviceSolver
 from slurm_bridge_tpu_torch.solver.snapshot import (
@@ -288,6 +288,9 @@ class PlacementScheduler:
         #: the breakdown the sim harness and the full-tick benchmark read;
         #: the histograms above carry the same numbers for Prometheus
         self.last_phase_ms: dict[str, float] = {}
+        #: host syncs of the last tick's local solve (``host_syncs`` on
+        #: its ``scheduler.solve`` span; ``solver.auction.note_sync``)
+        self.last_host_syncs = 0
         #: event-driven incremental tick (PR-11). Off (the default) is the
         #: PR-10 tick byte-for-byte. On: the pending scan re-walks the ""
         #: index bucket only when the store's Pod dirty-set moved, the
@@ -704,12 +707,14 @@ class PlacementScheduler:
 
     def _tick(self, tick_span) -> int:
         self.last_phase_ms = {"store": 0.0, "encode": 0.0, "solve": 0.0, "bind": 0.0}
+        self.last_host_syncs = 0
         self.last_explain_ledger = None
         with TRACER.span("scheduler.store") as store_span:
             self._retry_pending_cancels()
             if self.admission is not None:
                 self._prune_deductions()
-            pods = self._pending_set()
+            with TRACER.span("scheduler.store.pending"):
+                pods = self._pending_set()
             store_span.count("pods_pending", len(pods))
             if pods:
                 # every engine honours incumbent pinning since round 5
@@ -721,7 +726,8 @@ class PlacementScheduler:
                 )
                 store_span.count("incumbents", len(incumbents))
                 t0 = time.perf_counter()
-                partitions, nodes = self.cluster_state()
+                with TRACER.span("scheduler.store.inventory"):
+                    partitions, nodes = self.cluster_state()
                 store_span.count("nodes", len(nodes))
         store_s = store_span.duration
         self.last_phase_ms["store"] = store_s * 1e3
@@ -736,35 +742,38 @@ class PlacementScheduler:
             _pods_unplaced.set(0)
             return 0
         _store_seconds.observe(store_s)
-        priorities = None
-        if self.policy is not None:
-            # the policy pass: class/tenant resolution, fair-share
-            # admission order, bounded preemption pool, per-job effective
-            # priorities the solver admits by (see policy/engine.py)
-            self.policy.begin_tick(nodes)
-            pods, incumbents, priorities = self.policy.prepare(
-                pods, incumbents
-            )
-        trail = self.explain_trail
-        t_idx = -1
-        if trail is not None:
-            for _j, _p in enumerate(pods):
-                if trail.matches(_p.name):
-                    t_idx = _j
-                    msg = f"pending in partition {_p.partition!r}"
-                    if priorities is not None:
-                        msg += (
-                            f", fair-share slot {_j} of {len(pods)}, "
-                            f"effective priority {priorities[_j]:g}"
-                        )
-                    trail.add("queue", msg)
-                    break
-        all_pods = pods + incumbents
-        demands: list[JobDemand] = []
-        for pod in all_pods:
-            d = pod.demand or JobDemand(partition=pod.partition)
-            demands.append(d)
-        n_pending = len(pods)
+        # the solve's inputs: the policy pass, the demand list (and,
+        # below, the warm-start key) — the first part of "other"
+        with TRACER.span("scheduler.prepare"):
+            priorities = None
+            if self.policy is not None:
+                # the policy pass: class/tenant resolution, fair-share
+                # admission order, bounded preemption pool, per-job effective
+                # priorities the solver admits by (see policy/engine.py)
+                self.policy.begin_tick(nodes)
+                pods, incumbents, priorities = self.policy.prepare(
+                    pods, incumbents
+                )
+            trail = self.explain_trail
+            t_idx = -1
+            if trail is not None:
+                for _j, _p in enumerate(pods):
+                    if trail.matches(_p.name):
+                        t_idx = _j
+                        msg = f"pending in partition {_p.partition!r}"
+                        if priorities is not None:
+                            msg += (
+                                f", fair-share slot {_j} of {len(pods)}, "
+                                f"effective priority {priorities[_j]:g}"
+                            )
+                        trail.add("queue", msg)
+                        break
+            all_pods = pods + incumbents
+            demands: list[JobDemand] = []
+            for pod in all_pods:
+                d = pod.demand or JobDemand(partition=pod.partition)
+                demands.append(d)
+            n_pending = len(pods)
         #: whether this tick ran (or will run) a FRESH solve — the
         #: backlog-generation boundary for the versioned unschedulable
         #: mark (satellite b): a warm-start tick re-solves nothing, so
@@ -799,7 +808,8 @@ class PlacementScheduler:
                 # solver is not invoked at all. Bind/mark re-runs below
                 # either way: it is diff-only, and its events are part
                 # of the determinism contract.
-                memo_key = self._solve_key(all_pods, priorities, n_pending)
+                with TRACER.span("scheduler.prepare"):
+                    memo_key = self._solve_key(all_pods, priorities, n_pending)
                 m = self._solve_memo
                 if (
                     m is not None
@@ -1111,10 +1121,13 @@ class PlacementScheduler:
             # running work (admission sorts pending rows first otherwise)
             batch.priority[batch.job_of >= n_pending] += 0.5
 
+        syncs0 = auction.HOST_SYNCS
         with TRACER.span("scheduler.solve") as solve_span:
             placement = self._solve(snapshot, batch, incumbent_arr)
             solve_span.set_tag("engine", self.last_route)
             solve_span.count("shards", int(batch.num_shards))
+            self.last_host_syncs = auction.HOST_SYNCS - syncs0
+            solve_span.count("host_syncs", self.last_host_syncs)
         solve_s = solve_span.duration
         self.last_phase_ms["solve"] = solve_s * 1e3
         _solve_seconds.observe(solve_s)

@@ -23,6 +23,11 @@ Recording swaps the tracer's sampler to always-on for the window and
 restores it after, so the flight recorder works regardless of the
 process-wide sampling policy, and tests/embedders leave no global state
 behind.
+
+Spans mark phases and batches, never single objects: the operator's sweep
+counts the reconciles it drives (``reconciles``, ``reconcile_ms``) rather
+than opening a span per job, so a churn tick records about a hundred
+spans, not one per finished or unsettled job.
 """
 
 from __future__ import annotations
@@ -140,9 +145,9 @@ class FlightRecorder:
         #: raw-span ring (debugging / tracez): keep-NEWEST, evictions
         #: counted in ``spans_dropped``. Since ISSUE 14 the RECORD no
         #: longer depends on it — every finishing span folds into the
-        #: per-path/per-name rollups below at export time, so a 500k-span
-        #: storm tick overflowing the ring still produces exact path
-        #: totals and the phase-sum reconciliation holds at any scale.
+        #: per-path/per-name rollups below at export time, so a storm
+        #: tick of RPC chunks overflowing the ring still produces exact
+        #: path totals and the phase-sum reconciliation holds at any scale.
         self._spans: deque[Span] = deque(maxlen=capacity)
         self._dropped = 0
         self._truncated = 0
@@ -341,7 +346,7 @@ class FlightRecorder:
         # 0.0 ms in that record — the span genuinely cost nothing that
         # tick. Medianing only over records where the path appeared gave
         # each path its own support: a child that exists only in the one
-        # cold tick (sim.arrive/operator.reconcile — 50k reconciles at
+        # cold tick (sim.arrive/sim.arrive.create — 50k creates at
         # tick 0, none after) medianed to its cold-tick cost while its
         # every-tick parent medianed to ~0, printing a tree where a
         # child "takes" 5,884 ms inside a 0.025 ms parent (ISSUE 11).

@@ -10,6 +10,13 @@ policies ``always|never|0-100`` (tracing.go:64-89), reserved service tags
 threads explicitly (pass the parent) and within a thread implicitly via a
 context variable, mirroring how the virtual-kubelet library wraps pod-sync
 operations in spans.
+
+Spans opened on the main thread while ``torch.profiler`` records also open
+a profiler range of the same name, so the device trace's idle gaps are
+named by what the tick's thread was doing; other threads' spans stay out
+of it. A tracer can also keep a per-name tally of one thread's span
+milliseconds for a block (:meth:`Tracer.tally`), which the simulator's tick
+reads its phases from.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import json
 import logging
 import os
 import random
+import sys
 import threading
 import time
 from collections import deque
@@ -49,7 +57,9 @@ def _new_id(nbytes: int) -> str:
 class Span:
     """One span. ``slots=True`` and lazy tag/annotation dicts keep
     construction cheap — the flight recorder opens spans inside the hot
-    tick phases, so per-span cost is tick overhead."""
+    tick phases, so per-span cost is tick overhead. Spans mark phases and
+    batches, never single objects: a per-object cost rides a counter on
+    the batch's span."""
 
     name: str
     trace_id: str
@@ -209,17 +219,32 @@ def make_exporter(name: str, **kwargs):
 # Tracer
 # --------------------------------------------------------------------------
 
+#: the thread whose spans reach the device trace (the tick's thread)
+_MAIN_THREAD = threading.main_thread().ident
+
+
 class _SpanContext:
     """Context manager produced by Tracer.span()."""
 
-    __slots__ = ("_tracer", "_span", "_token")
+    __slots__ = ("_tracer", "_span", "_token", "_range")
 
     def __init__(self, tracer: "Tracer", span: Span):
         self._tracer = tracer
         self._span = span
         self._token = None
+        self._range = None
 
     def __enter__(self) -> Span:
+        # a profiler range of the span's name, opened outside the span's
+        # own clock; this module never imports torch, it only looks for it
+        prof = sys.modules.get("torch.autograd.profiler")
+        if (
+            prof is not None
+            and getattr(prof, "_is_profiler_enabled", False)
+            and threading.get_ident() == _MAIN_THREAD
+        ):
+            self._range = prof.record_function(self._span.name)
+            self._range.__enter__()
         self._span.start = time.time()
         self._span._mono0 = time.perf_counter()
         self._token = _current_span.set(self._span)
@@ -231,7 +256,16 @@ class _SpanContext:
         if exc is not None:
             self._span.status = f"ERROR: {exc_type.__name__}: {exc}"
         _current_span.reset(self._token)
-        self._tracer._finish(self._span)
+        tracer = self._tracer
+        tally = tracer._tally
+        if tally is not None and threading.get_ident() == tracer._tally_thread:
+            name = self._span.name
+            tally[name] = tally.get(name, 0.0) + (
+                self._span._mono1 - self._span._mono0
+            ) * 1e3
+        tracer._finish(self._span)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         return None  # never swallow
 
 
@@ -337,6 +371,9 @@ class Tracer:
         self._exporters_snapshot: tuple = ()
         self._recent = deque(maxlen=256)  # tracez ring, sampled spans only
         self._lock = threading.Lock()
+        #: span name → summed ms of one thread's spans (:meth:`tally`)
+        self._tally: dict[str, float] | None = None
+        self._tally_thread: int | None = None
 
     # -- configuration ----------------------------------------------------
     def configure(
@@ -387,6 +424,19 @@ class Tracer:
                 self._sampler = prev_sampler
                 self._exporters = [e for e in self._exporters if e is not sink]
                 self._exporters_snapshot = tuple(self._exporters)
+
+    @contextlib.contextmanager
+    def tally(self):
+        """Tally the calling thread's spans for the ``with`` block: every
+        span that closes on it adds its milliseconds under its name,
+        sampled or not. Yields the tally's dict, which stays readable
+        after the block; spans closed after it add nothing."""
+        tally: dict[str, float] = {}
+        self._tally, self._tally_thread = tally, threading.get_ident()
+        try:
+            yield tally
+        finally:
+            self._tally = self._tally_thread = None
 
     # -- span creation ----------------------------------------------------
     def span(

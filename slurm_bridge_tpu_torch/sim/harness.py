@@ -1006,8 +1006,7 @@ class SimHarness:
             # keys the sweep won't settle (validation failures, finished
             # jobs, conflicts) go through the single-key oracle, exactly
             # like the mirror's event pump
-            for key in self.operator.sweep(names):
-                self.operator.reconcile(key)
+            self.operator.sweep(names, settle=True)
         # the trace's virtual duration rides the demand's time limit —
         # the sim agent runs each job for exactly that long. One batched
         # column write; object stores keep the per-pod replacement.
@@ -1205,8 +1204,8 @@ class SimHarness:
                 except Exception:
                     break
                 self.operator._collect_owner(ev, owners)
-            for owner in self.operator.sweep(owners) if owners else ():
-                self.operator.reconcile(owner)
+            if owners:
+                self.operator.sweep(owners, settle=True)
 
     def _sync_group_pipelined(self, group: list[str]) -> None:
         """One mirror group with the status fetch overlapped: provider
@@ -1228,7 +1227,9 @@ class SimHarness:
             part, apply_fn, fut = pending
             pending = None
             try:
-                apply_fn(fut.result())
+                with TRACER.span("sim.mirror.fetch_wait"):
+                    fetched = fut.result()
+                apply_fn(fetched)
             except RpcError:
                 self._rpc_fail(f"provider.sync:{part}")
 
@@ -1321,13 +1322,14 @@ class SimHarness:
         commits0 = sum(self.store.commit_counts_snapshot().values())
         solves0 = self.scheduler.solves_total
 
-        t0 = time.perf_counter()
+        # the phase clock is the spans' own: arrive's span, and the spans
+        # the scheduler tick and the mirror close on this thread, tallied
         self._fast_bound_tick = []
         with TRACER.span("sim.arrive") as arrive_span:
             n_arrived = self._arrive(tick) if arrivals else 0
             arrive_span.count("arrivals", n_arrived)
             arrive_span.count("fastpath_bound", len(self._fast_bound_tick))
-        arrive_ms = (time.perf_counter() - t0) * 1e3
+        arrive_ms = arrive_span.duration * 1e3
         self._arrive_ms.append(arrive_ms)
 
         stale = bool(self.scenario.faults.active("stale_snapshot", tick))
@@ -1345,27 +1347,45 @@ class SimHarness:
             }
             pending_before = self._pending_names(pods_before)
 
-        t1 = time.perf_counter()
-        if self._stack_up:
-            try:
-                self.scheduler.tick()
-            except RpcError:
-                self._rpc_fail("scheduler.tick")
-        sched_ms = (time.perf_counter() - t1) * 1e3
+        with TRACER.tally() as sched:
+            if self._stack_up:
+                try:
+                    self.scheduler.tick()
+                except RpcError:
+                    self._rpc_fail("scheduler.tick")
+        sched_ms = sched.get("scheduler.tick", 0.0)
         phases = dict(self.scheduler.last_phase_ms) if self._stack_up else {}
         # arrival ingest is a first-class tick phase since ISSUE 14 — it
         # was real per-tick work the headline silently excluded
         phases["arrive"] = arrive_ms
 
-        t2 = time.perf_counter()
-        if self._stack_up:
-            self._mirror()
-        phases["mirror"] = (time.perf_counter() - t2) * 1e3
+        with TRACER.tally() as mirror:
+            if self._stack_up:
+                self._mirror()
+        phases["mirror"] = mirror.get("sim.mirror", 0.0)
         # anything tick() spent outside its own phase decomposition
         # (RPC-fault aborts, remote skips, future costs) gets its own
         # explicit bucket instead of silently inflating "store"
         accounted = sum(phases.get(k, 0.0) for k in ("store", "encode", "solve", "bind"))
         phases["other"] = max(0.0, sched_ms - accounted)
+
+        # parts of the phases above, outside PHASES' sum: the store's
+        # pending scan and inventory, the first part of "other", the
+        # solve's repair and host syncs, and the tick thread's share of
+        # the mirror (submits, status reads and fetch waits, the sweep
+        # with the reconciles it settles)
+        phases["store.pending"] = sched.get("scheduler.store.pending", 0.0)
+        phases["store.inventory"] = sched.get("scheduler.store.inventory", 0.0)
+        phases["prepare"] = sched.get("scheduler.prepare", 0.0)
+        phases["solve.repair"] = sched.get("solve.repair", 0.0)
+        phases["solve.host_syncs"] = (
+            float(self.scheduler.last_host_syncs) if self._stack_up else 0.0
+        )
+        phases["mirror.submit"] = mirror.get("vnode.submit_chunk", 0.0)
+        phases["mirror.status"] = mirror.get("vnode.status", 0.0) + mirror.get(
+            "sim.mirror.fetch_wait", 0.0
+        )
+        phases["mirror.sweep"] = mirror.get("operator.sweep", 0.0)
 
         with TRACER.span("sim.verify"):
             self.cluster.step()

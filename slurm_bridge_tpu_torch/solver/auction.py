@@ -46,6 +46,20 @@ log = logging.getLogger("sbt.auction")
 _M32 = 0xFFFFFFFF
 _NEG_INF = float("-inf")
 
+#: points at which a solve read a device result on the host, counted by
+#: :func:`note_sync` on any device; a caller reads the change across one
+#: solve
+HOST_SYNCS = 0
+
+
+def note_sync(n: int = 1) -> None:
+    """Count ``n`` host syncs: each ``.tolist()``, ``.item()`` and
+    ``.cpu()`` of a solve, and the result's wait in :mod:`.session`. Syncs
+    inside PyTorch ops (``nonzero``, ``bincount``, boolean indexing) are
+    not counted."""
+    global HOST_SYNCS
+    HOST_SYNCS += n
+
 
 @dataclass(frozen=True)
 class AuctionConfig:
@@ -168,6 +182,7 @@ def segment_sum(
     by_rank = torch.sort(rank, stable=True).indices
     seg_r = s_sorted[by_rank]
     val_r = values[order][by_rank]
+    note_sync()
     off = 0
     for cnt in torch.bincount(rank).tolist():
         out.index_add_(0, seg_r[off : off + cnt], val_r[off : off + cnt])
@@ -792,6 +807,7 @@ def auction_place(
         has_gangs=q["has_gangs"],
         check_feats=k > 0 and batch_needs_feat_check(batch.req_features),
     )
+    note_sync(2)
     assign_np = assign.cpu().numpy()
     placement = Placement(
         node_of=assign_np,

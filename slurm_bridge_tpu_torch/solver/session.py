@@ -8,6 +8,9 @@ assignment vector (``free_after`` is recomputed on the host in O(P·R),
 cheaper than a second fetch). ``solve_async`` starts the device→host copy
 without blocking and returns a handle, so a caller can overlap the next
 tick's encode/upload with the current tick's solve.
+
+Two parts of a solve are spans under the caller's: ``solve.rounds`` (the
+rounds' host loop) and ``solve.repair`` (the host-side exact repair).
 """
 
 from __future__ import annotations
@@ -17,11 +20,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from slurm_bridge_tpu_torch.obs.tracing import TRACER
 from slurm_bridge_tpu_torch.solver.auction import (
     AuctionConfig,
     CandidatePools,
     _auction_kernel,
     node_order,
+    note_sync,
     batch_needs_feat_check,
     repair_unplaced,
     resolve_candidates,
@@ -46,6 +51,7 @@ class PendingSolve:
 
     def result(self) -> Placement:
         if self._event is not None:
+            note_sync()
             self._event.synchronize()
         assign = self._assign.numpy().copy()
         placed = assign >= 0
@@ -61,10 +67,11 @@ class PendingSolve:
                 )
         placement = Placement(node_of=assign, placed=placed, free_after=free_after)
         if self._repair:
-            placement = repair_unplaced(
-                self._snapshot, self._batch, placement,
-                incumbent=self._incumbent,
-            )
+            with TRACER.span("solve.repair"):
+                placement = repair_unplaced(
+                    self._snapshot, self._batch, placement,
+                    incumbent=self._incumbent,
+                )
         return placement
 
 
@@ -169,30 +176,31 @@ class DeviceSolver:
             samp_start = samp_count = np.zeros(1, np.int32)
             dev_order = torch.zeros(1, dtype=torch.int32, device=self.device)
         q = stage_batch(batch, incumbent, self.device)
-        assign, _free_after = _auction_kernel(
-            self._dev_free,
-            self._dev_part,
-            self._dev_feat,
-            q["dem"], q["job_part"], q["req_feat"], q["prio"], q["gang"],
-            self._dev_scale,
-            q["incumbent"],
-            dev_order,
-            self._to_dev(samp_start, np.int32),
-            self._to_dev(samp_count, np.int32),
-            self._dev_nodes,
-            rounds=cfg.rounds,
-            num_nodes=self.snapshot.num_nodes,
-            eta=cfg.eta,
-            jitter=cfg.jitter,
-            affinity_weight=cfg.affinity_weight,
-            dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
-            use_pallas=resolve_kernel(cfg, self._backend, k),
-            gang_salvage_rounds=cfg.gang_salvage_rounds,
-            gang_first=cfg.gang_first,
-            candidates=k,
-            has_gangs=q["has_gangs"],
-            check_feats=k > 0 and batch_needs_feat_check(batch.req_features),
-        )
+        with TRACER.span("solve.rounds"):
+            assign, _free_after = _auction_kernel(
+                self._dev_free,
+                self._dev_part,
+                self._dev_feat,
+                q["dem"], q["job_part"], q["req_feat"], q["prio"], q["gang"],
+                self._dev_scale,
+                q["incumbent"],
+                dev_order,
+                self._to_dev(samp_start, np.int32),
+                self._to_dev(samp_count, np.int32),
+                self._dev_nodes,
+                rounds=cfg.rounds,
+                num_nodes=self.snapshot.num_nodes,
+                eta=cfg.eta,
+                jitter=cfg.jitter,
+                affinity_weight=cfg.affinity_weight,
+                dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
+                use_pallas=resolve_kernel(cfg, self._backend, k),
+                gang_salvage_rounds=cfg.gang_salvage_rounds,
+                gang_first=cfg.gang_first,
+                candidates=k,
+                has_gangs=q["has_gangs"],
+                check_feats=k > 0 and batch_needs_feat_check(batch.req_features),
+            )
         event = None
         if self.device.type == "cuda":
             # overlap the device→host copy with whatever the caller does next

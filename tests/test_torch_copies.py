@@ -20,7 +20,87 @@ ALLOWED = {
     "obs/metrics.py": [],
     # tracing_interceptor's lazy ``import grpc`` stays: the tick never
     # calls that server hook
-    "obs/tracing.py": [],
+    "obs/tracing.py": [
+        # main-thread spans open a torch.profiler range while it records; tally() sums one thread's span ms for a block
+        ("operations in spans.\n",
+         "operations in spans.\n"
+         "\n"
+         "Spans opened on the main thread while ``torch.profiler`` records also open\n"
+         "a profiler range of the same name, so the device trace's idle gaps are\n"
+         "named by what the tick's thread was doing; other threads' spans stay out\n"
+         "of it. A tracer can also keep a per-name tally of one thread's span\n"
+         "milliseconds for a block (:meth:`Tracer.tally`), which the simulator's tick\n"
+         "reads its phases from.\n"),
+        ("import random\n",
+         "import random\n"
+         "import sys\n"),
+        ('    tick phases, so per-span cost is tick overhead."""\n',
+         "    tick phases, so per-span cost is tick overhead. Spans mark phases and\n"
+         "    batches, never single objects: a per-object cost rides a counter on\n"
+         '    the batch\'s span."""\n'),
+        ("class _SpanContext:\n"
+         '    """Context manager produced by Tracer.span()."""\n'
+         "\n"
+         '    __slots__ = ("_tracer", "_span", "_token")\n',
+         "#: the thread whose spans reach the device trace (the tick's thread)\n"
+         "_MAIN_THREAD = threading.main_thread().ident\n"
+         "\n"
+         "\n"
+         "class _SpanContext:\n"
+         '    """Context manager produced by Tracer.span()."""\n'
+         "\n"
+         '    __slots__ = ("_tracer", "_span", "_token", "_range")\n'),
+        ("\n"
+         "    def __enter__(self) -> Span:\n",
+         "        self._range = None\n"
+         "\n"
+         "    def __enter__(self) -> Span:\n"
+         "        # a profiler range of the span's name, opened outside the span's\n"
+         "        # own clock; this module never imports torch, it only looks for it\n"
+         '        prof = sys.modules.get("torch.autograd.profiler")\n'
+         "        if (\n"
+         "            prof is not None\n"
+         '            and getattr(prof, "_is_profiler_enabled", False)\n'
+         "            and threading.get_ident() == _MAIN_THREAD\n"
+         "        ):\n"
+         "            self._range = prof.record_function(self._span.name)\n"
+         "            self._range.__enter__()\n"),
+        ("        self._tracer._finish(self._span)\n",
+         "        tracer = self._tracer\n"
+         "        tally = tracer._tally\n"
+         "        if tally is not None and threading.get_ident() == tracer._tally_thread:\n"
+         "            name = self._span.name\n"
+         "            tally[name] = tally.get(name, 0.0) + (\n"
+         "                self._span._mono1 - self._span._mono0\n"
+         "            ) * 1e3\n"
+         "        tracer._finish(self._span)\n"
+         "        if self._range is not None:\n"
+         "            self._range.__exit__(None, None, None)\n"),
+        ("        self._recent = deque(maxlen=256)  # tracez ring, sampled spans only\n"
+         "        self._lock = threading.Lock()\n"
+         "\n",
+         "        self._recent = deque(maxlen=256)  # tracez ring, sampled spans only\n"
+         "        self._lock = threading.Lock()\n"
+         "        #: span name → summed ms of one thread's spans (:meth:`tally`)\n"
+         "        self._tally: dict[str, float] | None = None\n"
+         "        self._tally_thread: int | None = None\n"
+         "\n"),
+        ("                self._exporters_snapshot = tuple(self._exporters)\n",
+         "                self._exporters_snapshot = tuple(self._exporters)\n"
+         "\n"
+         "    @contextlib.contextmanager\n"
+         "    def tally(self):\n"
+         '        """Tally the calling thread\'s spans for the ``with`` block: every\n'
+         "        span that closes on it adds its milliseconds under its name,\n"
+         "        sampled or not. Yields the tally's dict, which stays readable\n"
+         '        after the block; spans closed after it add nothing."""\n'
+         "        tally: dict[str, float] = {}\n"
+         "        self._tally, self._tally_thread = tally, threading.get_ident()\n"
+         "        try:\n"
+         "            yield tally\n"
+         "        finally:\n"
+         "            self._tally = self._tally_thread = None\n"),
+    ],
     "obs/events.py": [],
     "obs/explain.py": [],
     "bridge/freeze.py": [],
@@ -190,6 +270,96 @@ ALLOWED = {
         ("                    bucket=bucket,\n                )\n            )\n",
          "                    bucket=bucket,\n                    device=device,\n"
          "                )\n            )\n"),
+        # spans for the tick's unnamed time (pending scan, inventory, prepare); the solve's host syncs
+        ("from slurm_bridge_tpu_torch.solver import AuctionConfig, greedy_place\n",
+         "from slurm_bridge_tpu_torch.solver import AuctionConfig, auction, greedy_place\n"),
+        ("        self.last_phase_ms: dict[str, float] = {}\n",
+         "        self.last_phase_ms: dict[str, float] = {}\n"
+         "        #: host syncs of the last tick's local solve (``host_syncs`` on\n"
+         "        #: its ``scheduler.solve`` span; ``solver.auction.note_sync``)\n"
+         "        self.last_host_syncs = 0\n"),
+        ('        self.last_phase_ms = {"store": 0.0, "encode": 0.0, "solve": 0.0, "bind": 0.0}\n',
+         '        self.last_phase_ms = {"store": 0.0, "encode": 0.0, "solve": 0.0, "bind": 0.0}\n'
+         "        self.last_host_syncs = 0\n"),
+        ("            pods = self._pending_set()\n",
+         '            with TRACER.span("scheduler.store.pending"):\n'
+         "                pods = self._pending_set()\n"),
+        ("                partitions, nodes = self.cluster_state()\n",
+         '                with TRACER.span("scheduler.store.inventory"):\n'
+         "                    partitions, nodes = self.cluster_state()\n"),
+        ("        priorities = None\n"
+         "        if self.policy is not None:\n"
+         "            # the policy pass: class/tenant resolution, fair-share\n"
+         "            # admission order, bounded preemption pool, per-job effective\n"
+         "            # priorities the solver admits by (see policy/engine.py)\n"
+         "            self.policy.begin_tick(nodes)\n"
+         "            pods, incumbents, priorities = self.policy.prepare(\n"
+         "                pods, incumbents\n"
+         "            )\n"
+         "        trail = self.explain_trail\n"
+         "        t_idx = -1\n"
+         "        if trail is not None:\n"
+         "            for _j, _p in enumerate(pods):\n"
+         "                if trail.matches(_p.name):\n"
+         "                    t_idx = _j\n"
+         '                    msg = f"pending in partition {_p.partition!r}"\n'
+         "                    if priorities is not None:\n"
+         "                        msg += (\n"
+         '                            f", fair-share slot {_j} of {len(pods)}, "\n'
+         '                            f"effective priority {priorities[_j]:g}"\n'
+         "                        )\n"
+         '                    trail.add("queue", msg)\n'
+         "                    break\n"
+         "        all_pods = pods + incumbents\n"
+         "        demands: list[JobDemand] = []\n"
+         "        for pod in all_pods:\n"
+         "            d = pod.demand or JobDemand(partition=pod.partition)\n"
+         "            demands.append(d)\n"
+         "        n_pending = len(pods)\n",
+         "        # the solve's inputs: the policy pass, the demand list (and,\n"
+         '        # below, the warm-start key) — the first part of "other"\n'
+         '        with TRACER.span("scheduler.prepare"):\n'
+         "            priorities = None\n"
+         "            if self.policy is not None:\n"
+         "                # the policy pass: class/tenant resolution, fair-share\n"
+         "                # admission order, bounded preemption pool, per-job effective\n"
+         "                # priorities the solver admits by (see policy/engine.py)\n"
+         "                self.policy.begin_tick(nodes)\n"
+         "                pods, incumbents, priorities = self.policy.prepare(\n"
+         "                    pods, incumbents\n"
+         "                )\n"
+         "            trail = self.explain_trail\n"
+         "            t_idx = -1\n"
+         "            if trail is not None:\n"
+         "                for _j, _p in enumerate(pods):\n"
+         "                    if trail.matches(_p.name):\n"
+         "                        t_idx = _j\n"
+         '                        msg = f"pending in partition {_p.partition!r}"\n'
+         "                        if priorities is not None:\n"
+         "                            msg += (\n"
+         '                                f", fair-share slot {_j} of {len(pods)}, "\n'
+         '                                f"effective priority {priorities[_j]:g}"\n'
+         "                            )\n"
+         '                        trail.add("queue", msg)\n'
+         "                        break\n"
+         "            all_pods = pods + incumbents\n"
+         "            demands: list[JobDemand] = []\n"
+         "            for pod in all_pods:\n"
+         "                d = pod.demand or JobDemand(partition=pod.partition)\n"
+         "                demands.append(d)\n"
+         "            n_pending = len(pods)\n"),
+        ("                memo_key = self._solve_key(all_pods, priorities, n_pending)\n",
+         '                with TRACER.span("scheduler.prepare"):\n'
+         "                    memo_key = self._solve_key(all_pods, priorities, n_pending)\n"),
+        ("\n"
+         '        with TRACER.span("scheduler.solve") as solve_span:\n',
+         "\n"
+         "        syncs0 = auction.HOST_SYNCS\n"
+         '        with TRACER.span("scheduler.solve") as solve_span:\n'),
+        ('            solve_span.count("shards", int(batch.num_shards))\n',
+         '            solve_span.count("shards", int(batch.num_shards))\n'
+         "            self.last_host_syncs = auction.HOST_SYNCS - syncs0\n"
+         '            solve_span.count("host_syncs", self.last_host_syncs)\n'),
     ],
     "solver/encoder.py": [],
     "solver/native/greedy.cpp": [],
@@ -268,7 +438,45 @@ ALLOWED = {
          "                    )\n"),
     ],
     "bridge/controller.py": [],
-    "bridge/operator.py": [],
+    "bridge/operator.py": [
+        # no span per reconciled job: sweep(settle=True) reconciles and counts its slow keys
+        ("from slurm_bridge_tpu_torch.obs.tracing import TRACER, current_span\n",
+         "from slurm_bridge_tpu_torch.obs.tracing import TRACER\n"),
+        ("        t0 = time.perf_counter()\n"
+         "        # join an active SAMPLED trace only: a controller-thread reconcile\n"
+         "        # with no ambient span (production steady state) — or one inside a\n"
+         "        # trace the sampler discarded — pays one contextvar read, not a\n"
+         "        # span build per reconcile\n"
+         "        ambient = current_span()\n"
+         "        if ambient is not None and ambient.sampled:\n"
+         '            with TRACER.span("operator.reconcile", job=job_name):\n'
+         "                try:\n"
+         "                    return self._reconcile(job_name)\n"
+         "                finally:\n"
+         "                    _reconcile_seconds.observe(time.perf_counter() - t0)\n",
+         "        # no span per job: the controller thread's ``{name}.reconcile``\n"
+         "        # span covers its keys, and the sweep counts the ones it settles\n"
+         "        t0 = time.perf_counter()\n"),
+        ("    def sweep(self, names) -> list[str]:\n",
+         "    def sweep(self, names, *, settle: bool = False) -> list[str]:\n"),
+        ("        oracle and the fallback for everything unusual.\n",
+         "        oracle and the fallback for everything unusual. With ``settle``\n"
+         "        the sweep does so itself, in order and inside its span (counted\n"
+         "        as its ``reconciles`` and ``reconcile_ms``), and returns nothing.\n"),
+        ("                return self._sweep_cols(span, names, jt, pt)\n"
+         "            return self._sweep(span, names)\n",
+         "                slow = self._sweep_cols(span, names, jt, pt)\n"
+         "            else:\n"
+         "                slow = self._sweep(span, names)\n"
+         "            if not settle:\n"
+         "                return slow\n"
+         "            t0 = time.perf_counter()\n"
+         "            for key in slow:\n"
+         "                self.reconcile(key)\n"
+         '            span.count("reconciles", len(slow))\n'
+         '            span.count("reconcile_ms", (time.perf_counter() - t0) * 1e3)\n'
+         "            return []\n"),
+    ],
     # no grpc on the card's machine: the port's RpcError and StatusCode
     "bridge/vnode.py": [
         ("import grpc\nimport numpy as np\n", "import numpy as np\n"),
@@ -314,7 +522,24 @@ ALLOWED = {
          "            self._applied_mc = mc\n"),
     ],
     "bridge/configurator.py": [],
-    "obs/flight.py": [],
+    "obs/flight.py": [
+        # docstrings: spans mark phases and batches, none per object
+        ("behind.\n",
+         "behind.\n"
+         "\n"
+         "Spans mark phases and batches, never single objects: the operator's sweep\n"
+         "counts the reconciles it drives (``reconciles``, ``reconcile_ms``) rather\n"
+         "than opening a span per job, so a churn tick records about a hundred\n"
+         "spans, not one per finished or unsettled job.\n"),
+        ("        #: per-path/per-name rollups below at export time, so a 500k-span\n"
+         "        #: storm tick overflowing the ring still produces exact path\n"
+         "        #: totals and the phase-sum reconciliation holds at any scale.\n",
+         "        #: per-path/per-name rollups below at export time, so a storm\n"
+         "        #: tick of RPC chunks overflowing the ring still produces exact\n"
+         "        #: path totals and the phase-sum reconciliation holds at any scale.\n"),
+        ("        # cold tick (sim.arrive/operator.reconcile — 50k reconciles at\n",
+         "        # cold tick (sim.arrive/sim.arrive.create — 50k creates at\n"),
+    ],
     "policy/score.py": [],
     "policy/__init__.py": [],
     "shard/planner.py": [],
@@ -380,6 +605,69 @@ ALLOWED = {
          "\n"
          "\n"
          "class SimHarness:\n"),
+        # phases and their parts from the spans' own durations; the sweep settles its keys; the fetch wait's span
+        ("            for key in self.operator.sweep(names):\n"
+         "                self.operator.reconcile(key)\n",
+         "            self.operator.sweep(names, settle=True)\n"),
+        ("            for owner in self.operator.sweep(owners) if owners else ():\n"
+         "                self.operator.reconcile(owner)\n",
+         "            if owners:\n"
+         "                self.operator.sweep(owners, settle=True)\n"),
+        ("                apply_fn(fut.result())\n",
+         '                with TRACER.span("sim.mirror.fetch_wait"):\n'
+         "                    fetched = fut.result()\n"
+         "                apply_fn(fetched)\n"),
+        ("\n"
+         "        t0 = time.perf_counter()\n"
+         "        self._fast_bound_tick = []\n",
+         "\n"
+         "        # the phase clock is the spans' own: arrive's span, and the spans\n"
+         "        # the scheduler tick and the mirror close on this thread, tallied\n"
+         "        self._fast_bound_tick = []\n"),
+        ("        arrive_ms = (time.perf_counter() - t0) * 1e3\n",
+         "        arrive_ms = arrive_span.duration * 1e3\n"),
+        ("        t1 = time.perf_counter()\n"
+         "        if self._stack_up:\n"
+         "            try:\n"
+         "                self.scheduler.tick()\n"
+         "            except RpcError:\n"
+         '                self._rpc_fail("scheduler.tick")\n'
+         "        sched_ms = (time.perf_counter() - t1) * 1e3\n",
+         "        with TRACER.tally() as sched:\n"
+         "            if self._stack_up:\n"
+         "                try:\n"
+         "                    self.scheduler.tick()\n"
+         "                except RpcError:\n"
+         '                    self._rpc_fail("scheduler.tick")\n'
+         '        sched_ms = sched.get("scheduler.tick", 0.0)\n'),
+        ("        t2 = time.perf_counter()\n"
+         "        if self._stack_up:\n"
+         "            self._mirror()\n"
+         '        phases["mirror"] = (time.perf_counter() - t2) * 1e3\n',
+         "        with TRACER.tally() as mirror:\n"
+         "            if self._stack_up:\n"
+         "                self._mirror()\n"
+         '        phases["mirror"] = mirror.get("sim.mirror", 0.0)\n'),
+        ('        phases["other"] = max(0.0, sched_ms - accounted)\n',
+         '        phases["other"] = max(0.0, sched_ms - accounted)\n'
+         "\n"
+         "        # parts of the phases above, outside PHASES' sum: the store's\n"
+         '        # pending scan and inventory, the first part of "other", the\n'
+         "        # solve's repair and host syncs, and the tick thread's share of\n"
+         "        # the mirror (submits, status reads and fetch waits, the sweep\n"
+         "        # with the reconciles it settles)\n"
+         '        phases["store.pending"] = sched.get("scheduler.store.pending", 0.0)\n'
+         '        phases["store.inventory"] = sched.get("scheduler.store.inventory", 0.0)\n'
+         '        phases["prepare"] = sched.get("scheduler.prepare", 0.0)\n'
+         '        phases["solve.repair"] = sched.get("solve.repair", 0.0)\n'
+         '        phases["solve.host_syncs"] = (\n'
+         "            float(self.scheduler.last_host_syncs) if self._stack_up else 0.0\n"
+         "        )\n"
+         '        phases["mirror.submit"] = mirror.get("vnode.submit_chunk", 0.0)\n'
+         '        phases["mirror.status"] = mirror.get("vnode.status", 0.0) + mirror.get(\n'
+         '            "sim.mirror.fetch_wait", 0.0\n'
+         "        )\n"
+         '        phases["mirror.sweep"] = mirror.get("operator.sweep", 0.0)\n'),
     ],
     "sim/scenarios.py": [],
     "sim/cli.py": [],
