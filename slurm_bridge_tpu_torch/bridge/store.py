@@ -724,11 +724,11 @@ class ObjectStore:
                 # the names written after the cursor that are still
                 # dirty there (a later delete drops a name): the scan
                 # below, restricted to the writes the log holds
-                dirty = [self._changed.get(kind, {}), *(parts or {}).values()]
-                changed = sorted(
-                    n for n in logged
-                    if any(d.get(n, 0) > since_rv for d in dirty)
-                )
+                keep: set[str] = set()
+                for d in (self._changed.get(kind, {}), *(parts or {}).values()):
+                    get = d.get
+                    keep.update([n for n in logged if get(n, 0) > since_rv])
+                changed = sorted(keep)
             elif parts:
                 names = {
                     n

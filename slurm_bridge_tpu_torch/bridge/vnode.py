@@ -18,6 +18,7 @@ Reference parity: pkg/slurm-virtual-kubelet/. One provider per partition
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import logging
 import threading
@@ -165,14 +166,15 @@ class _SubmitItem(NamedTuple):
 
 class _RefreshBatch(NamedTuple):
     """The status-mirror working set captured from columns in one locked
-    pass: names, per-pod job ids, and the stored row state to diff
-    against."""
+    pass: names (name-sorted), per-pod job ids, and the stored row state
+    to diff against. The info segments' offsets are not kept: a heap
+    compaction moves them without a write, so the diff reads them under
+    its own lock."""
 
     names: list
     job_ids: list
     rv: np.ndarray
     phase: np.ndarray
-    istart: np.ndarray
     ilen: np.ndarray
 
 
@@ -180,16 +182,21 @@ class _MirrorCache(NamedTuple):
     """The incremental mirror's cross-tick working set (PR-11): the last
     classification's refresh batch plus everything derived from it — the
     unique job-id list, the PRE-BUILT chunked ``JobsInfoRequest`` protos
-    (``since_version`` is restamped per tick), and the job-id → batch
-    index map that routes an agent-reported change back to its pod.
-    Valid exactly while the store's Pod dirty-set stays empty; any pod
-    write (ours included) invalidates it and the next sync reclassifies.
+    (``since_version`` is restamped per tick), and the job-id → pod
+    names map that routes an agent-reported change back to its pod.
+    Each sync patches it for the pods written since the last one (see
+    :meth:`VirtualNodeProvider._rescope_mirror_cache`); a deletion, a
+    member moving off the node or a member's job ids moving drop it and
+    the node bucket is reclassified.
     """
 
     rb: _RefreshBatch
-    ids: list
+    #: the unique job ids (int64), in request order
+    ids: np.ndarray
     reqs: list
-    idx_of_jid: dict
+    #: job id → names of the members holding it: keyed by name, so a
+    #: join or leave renumbers no other member's entry
+    names_of_jid: dict
     #: per-request flag: True = the chunk holds at least one job id this
     #: provider has NEVER applied a response for, so it must query at
     #: since_version=0. The trap it closes: a job submitted THIS tick
@@ -204,6 +211,39 @@ class _MirrorCache(NamedTuple):
     #: satellite a) patches a changed member through without
     #: reclassifying the whole node bucket
     idx_of_name: dict
+    #: per id of ``ids``: True while no status response has been applied
+    #: for it — the source of ``full_chunk`` when a patch re-chunks
+    unapplied: np.ndarray
+
+
+def _splice(seq: list, drop: list, at: list, vals: list) -> list:
+    """``seq`` without the positions ``drop`` (ascending), with ``vals[k]``
+    inserted before old position ``at[k]`` (ascending): list slices
+    between the edits, so the Python-level work is O(edits)."""
+    out: list = []
+    lo = d = k = 0
+    while d < len(drop) or k < len(at):
+        if k < len(at) and (d == len(drop) or at[k] <= drop[d]):
+            out += seq[lo : at[k]]
+            out.append(vals[k])
+            lo = at[k]
+            k += 1
+        else:
+            out += seq[lo : drop[d]]
+            lo = drop[d] + 1
+            d += 1
+    out += seq[lo:]
+    return out
+
+
+def _full_chunks(unapplied: np.ndarray) -> list:
+    """Per ``_BULK_CHUNK`` chunk of an id list: whether it holds an id
+    with no status response applied yet (queried at since_version 0)."""
+    if not unapplied.size:
+        return []
+    starts = np.arange(0, unapplied.size, _BULK_CHUNK)
+    return np.logical_or.reduceat(unapplied, starts).tolist()
+
 
 #: gRPC codes meaning "the agent is unreachable / busy", not "the request
 #: is bad" — submissions stay Pending and retry on the next sync instead
@@ -383,22 +423,31 @@ class VirtualNodeProvider:
         #: store-side cursor: Pod rv watermark of the last classification
         self._scan_rv = 0
         self._mirror_cache: _MirrorCache | None = None
+        #: the names the last sync submitted: the next one re-examines
+        #: them beside the dirty names, since a submit that failed
+        #: transiently leaves no store trace and must be retried
+        self._resubmit: list[str] = []
+        #: one incremental sync at a time: sync() runs concurrently (the
+        #: partition ticker and sync_now callers), and the cursor, the kept
+        #: working set and the status passes over it move together
+        self._sync_lock = threading.RLock()
         #: classification-work accounting (ISSUE 12 satellite a): full
         #: node-bucket reclassifications vs dirty-set-scoped patches and
         #: the changed rows those patches touched — the regression test
-        #: pins classification work ∝ changed names, not O(cluster)
+        #: pins classification work ∝ changed names, not O(cluster) —
+        #: and the live pods the patches added to and took out of the
+        #: working set
         self.mirror_scans_full = 0
         self.mirror_scans_scoped = 0
         self.mirror_scoped_rows = 0
+        self.mirror_patched_joins = 0
+        self.mirror_patched_leaves = 0
         #: agent-side cursors: jobs-state / nodes-state versions last
         #: fully applied (0 = no cursor yet → full responses)
         self._jobs_cursor = 0
         #: job ids a status response has actually been APPLIED for — the
         #: cursor is only trusted for these; anything else queries full
         self._applied_ids: set[int] = set()
-        #: the working set ``_applied_ids`` was last built from: a cursor
-        #: pass over the same cache re-applies the same ids
-        self._applied_mc: _MirrorCache | None = None
         self._nodes_cursor = 0
         self._nodes_cache: list[NodeInfo] | None = None
         self._nodes_req: object | None = None
@@ -862,7 +911,11 @@ class VirtualNodeProvider:
                 # the status diff all run on columns — frozen views are
                 # built only for the odd pods (deletions, conflicts,
                 # multi-job) that need the per-object oracle
-                self._sync_cols(table, span, t0)
+                if self.incremental:
+                    with self._sync_lock:
+                        self._sync_cols(table, span, t0)
+                else:
+                    self._sync_cols(table, span, t0)
                 return
             work: list[Pod] = []  # needs per-pod converge (submit/terminate)
             refresh: list[Pod] = []  # has live jobs: bulk status mirror
@@ -997,7 +1050,7 @@ class VirtualNodeProvider:
 
     def _sync_cols_prepare(self, table, span, t0: float):
         """Everything in a columnar tick BEFORE the status fetch:
-        classification (full, scoped, or skipped via the dirty-set),
+        classification (full, patched, or skipped via the dirty-set),
         deletions, and the batched submits. Returns ``(mode, payload)``
         where mode is ``"incr"`` (payload: the mirror cache to cursor-
         sync), ``"full"`` (payload: the refresh batch for the full
@@ -1005,76 +1058,26 @@ class VirtualNodeProvider:
         mirror (``sync_staged``) cuts here so the fetch half can overlap
         the NEXT provider's prepare — the plain path calls this then
         refreshes inline, byte-identically."""
-        if self.incremental:
-            rv, changed, deleted = self.store.changes_since(
-                Pod.KIND, self._scan_rv
-            )
-            mc = self._mirror_cache
-            if not changed and not deleted and mc is not None:
-                span.count("converge_pods", 0)
-                span.count("refresh_pods", len(mc.rb.names))
-                return "incr", mc
-            if mc is not None and self._rescope_mirror_cache(
-                table, mc, changed, deleted
-            ):
-                # satellite a: the dirty names were either foreign pods
-                # (other providers' — the O(cluster)-per-write trap) or
-                # membership-preserving status moves, patched in place —
-                # classification work was ∝ changed names, and the
-                # cursor sync below reuses the SAME working set
-                self._scan_rv = rv
-                span.count("converge_pods", 0)
-                span.count("refresh_pods", len(mc.rb.names))
-                return "incr", mc
-            self._scan_rv = rv
-            self._mirror_cache = None
-            self.mirror_scans_full += 1
-        c = table.cols
-        with self.store.locked():
-            # names→rows resolved under the SAME lock hold as the column
-            # reads: a delete+create between the two would recycle a row
-            # index and pair a name with another pod's columns
-            names, rows = self.store.rows_by_node(Pod.KIND, self.node_name)
-            if not names:
-                span.count("converge_pods", 0)
-                span.count("refresh_pods", 0)
-                now = time.perf_counter()
-                _status_seconds.observe(0.0)
-                _sync_seconds.observe(now - t0)
-                return "done", None
-            deleted = c.deleted[rows]
-            sizecar = c.role[rows] == PodRole.SIZECAR
-            njobs = c.njobs[rows]
-            phase = c.phase[rows]
-            rv = c.rv[rows]
-            live = (
-                sizecar
-                & ~deleted
-                & (njobs > 0)
-                & (phase != _PH_SUCCEEDED)
-                & (phase != _PH_FAILED)
-            )
-            submit_mask = sizecar & ~deleted & (njobs == 0)
-            items: list[_SubmitItem] = []
-            for i in np.nonzero(submit_mask)[0].tolist():
-                row = int(rows[i])
-                ann = c.ann[row]
-                items.append(_SubmitItem(
-                    names[i], c.demand[row], c.uid[row],
-                    ann.get("submit-generation", ""), c.hint[row],
-                    int(rv[i]), c.labels[row], ann,
-                ))
-            ri = np.nonzero(live)[0]
-            rrows = rows[ri]
-            refresh = _RefreshBatch(
-                names=[names[i] for i in ri.tolist()],
-                job_ids=[c.job_ids[int(r)] for r in rrows.tolist()],
-                rv=rv[ri],
-                phase=phase[ri],
-                istart=c.istart[rrows],
-                ilen=c.ilen[rrows],
-            )
-            work_names = [names[i] for i in np.nonzero(deleted)[0].tolist()]
+        mc = None
+        with TRACER.span("vnode.classify"):
+            if not self.incremental:
+                items, work_names, refresh = self._classify_full(table)
+            else:
+                with self._sync_lock:
+                    items, work_names, refresh, mc = self._classify_incr(
+                        table, span
+                    )
+                    # a terminate that failed transiently leaves no store
+                    # trace either: the full classification retries it
+                    self._mirror_cache = mc if not work_names else None
+                    self._resubmit = [it.name for it in items]
+        if refresh is None:
+            span.count("converge_pods", 0)
+            span.count("refresh_pods", 0)
+            now = time.perf_counter()
+            _status_seconds.observe(0.0)
+            _sync_seconds.observe(now - t0)
+            return "done", None
         span.count("converge_pods", len(items) + len(work_names))
         span.count("refresh_pods", len(refresh.names))
         # deletions first: a terminate frees capacity the submits may need
@@ -1095,76 +1098,269 @@ class VirtualNodeProvider:
                 self._submit_chunk_cols_safe, list(zip(chunks, pre))
             )
         if self.incremental:
-            mc = self._build_mirror_cache(refresh)
-            # the cache survives to the next tick ONLY when this sync had
-            # no per-pod converge work: a submit that failed TRANSIENTLY
-            # (agent unavailable) leaves no store trace, and a cached
-            # steady skip would silently drop the level-triggered retry
-            # the full mirror repeats every sync. A successful converge
-            # wrote job ids anyway, so the next tick reclassifies either
-            # way — one extra O(pods-on-node) pass per converge tick.
-            self._mirror_cache = (
-                mc if not items and not work_names else None
-            )
             return "incr", mc
         return "full", refresh
 
+    def _classify_incr(self, table, span):
+        """The incremental classification: ``(items, work_names,
+        refresh, mirror cache)``. Consults the store's Pod dirty-set
+        first: with nothing written and nothing to resubmit, the kept
+        working set drives the cursor sync as it is; otherwise it is
+        patched for the written names, and only what the patch refuses
+        reclassifies the node bucket."""
+        rv, changed, deleted = self.store.changes_since(
+            Pod.KIND, self._scan_rv
+        )
+        mc = self._mirror_cache
+        if mc is not None:
+            if not changed and not deleted and not self._resubmit:
+                return [], [], mc.rb, mc
+            patched = self._rescope_mirror_cache(
+                table, mc, changed, deleted, span
+            )
+            if patched is not None:
+                self._scan_rv = rv
+                mc, items = patched
+                return items, [], mc.rb, mc
+        self._scan_rv = rv
+        self.mirror_scans_full += 1
+        span.set_tag("scan", "full")
+        items, work_names, refresh = self._classify_full(table)
+        if refresh is None:
+            return items, work_names, None, None
+        mc = self._build_mirror_cache(refresh)
+        # ids that left the working set stop counting as applied
+        self._applied_ids.intersection_update(mc.ids.tolist())
+        return items, work_names, refresh, mc
+
+    @staticmethod
+    def _submit_item(c, name: str, row: int) -> _SubmitItem:
+        ann = c.ann[row]
+        return _SubmitItem(
+            name, c.demand[row], c.uid[row],
+            ann.get("submit-generation", ""), c.hint[row],
+            int(c.rv[row]), c.labels[row], ann,
+        )
+
+    def _classify_full(self, table):
+        """One pass over the provider's whole node bucket: ``(submit
+        items, deletion names, refresh batch)``, each in name order; the
+        refresh batch is None when the bucket is empty."""
+        c = table.cols
+        with self.store.locked():
+            # names→rows resolved under the SAME lock hold as the column
+            # reads: a delete+create between the two would recycle a row
+            # index and pair a name with another pod's columns
+            names, rows = self.store.rows_by_node(Pod.KIND, self.node_name)
+            if not names:
+                return [], [], None
+            deleted = c.deleted[rows]
+            sizecar = c.role[rows] == PodRole.SIZECAR
+            njobs = c.njobs[rows]
+            phase = c.phase[rows]
+            rv = c.rv[rows]
+            live = (
+                sizecar
+                & ~deleted
+                & (njobs > 0)
+                & (phase != _PH_SUCCEEDED)
+                & (phase != _PH_FAILED)
+            )
+            submit_mask = sizecar & ~deleted & (njobs == 0)
+            items = [
+                self._submit_item(c, names[i], int(rows[i]))
+                for i in np.nonzero(submit_mask)[0].tolist()
+            ]
+            ri = np.nonzero(live)[0]
+            rrows = rows[ri]
+            refresh = _RefreshBatch(
+                names=[names[i] for i in ri.tolist()],
+                job_ids=[c.job_ids[int(r)] for r in rrows.tolist()],
+                rv=rv[ri],
+                phase=phase[ri],
+                ilen=c.ilen[rrows],
+            )
+            work_names = [names[i] for i in np.nonzero(deleted)[0].tolist()]
+        return items, work_names, refresh
+
     def _rescope_mirror_cache(
-        self, table, mc: _MirrorCache, changed, deleted
-    ) -> bool:
+        self, table, mc: _MirrorCache, changed, deleted, span
+    ):
         """Scoped mirror rescan (ISSUE 12 satellite a): after a pod
         write, patch the working set for the CHANGED names only instead
         of one full node-bucket reclassification per provider.
 
-        Exactly the membership-preserving cases are handled in place —
-        a live member's rv/phase/status-row moved (our own mirror
-        writes, agent transitions short of terminal), and writes to
-        pods on OTHER nodes, which this provider previously paid an
-        O(bucket) rescan for despite owning none of them. Anything that
-        changes membership or needs converge work — a new
-        submit-eligible pod on this node, a deletion, a terminal
-        transition, moved job ids — returns False and the caller runs
-        the full classification, as before.
+        The names the last sync submitted are re-examined too: a submit
+        that failed transiently leaves no store trace. Returns ``(mirror
+        cache, submit items)``, or None when the full classification
+        must run.
+
+        Handled here, each the way the full classification would see it:
+        writes to pods on OTHER nodes (ignored), worker pods here
+        (ignored), a live member's rv/phase/status-row moves (patched in
+        place), a submit-eligible pod here (a submit item), a live pod
+        new to the set (a join: inserted at its name-sorted place, its
+        ids appended to the id list — mostly the pods this provider
+        submitted last sync), a member turned SUCCEEDED or FAILED (a
+        leave: taken out with the ids no other member holds). A deletion
+        here, a member moving off the node and a member's job ids moving
+        return None. The work is O(changed names + joins + leaves) in
+        Python; what is O(members) is list slicing and array work.
         """
         idx_of = mc.idx_of_name
-        for name in deleted:
-            if name in idx_of:
-                return False  # tombstoned member: membership change
+        if not idx_of.keys().isdisjoint(deleted):
+            return None  # tombstoned member: membership change
+        # the last sync's submits, unless written since (``changed`` is
+        # name-sorted)
+        probe = changed + [
+            n for n in self._resubmit
+            if (k := bisect.bisect_left(changed, n)) == len(changed)
+            or changed[k] != n
+        ]
         rb = mc.rb
+        items: list[tuple[str, int]] = []
+        joins: list[tuple[str, int]] = []
+        leaves: list[int] = []
+        moved: list[int] = []  # batch indices of in-place patches
+        moved_rows: list[int] = []
         with self.store.locked():
             c = table.cols
-            row_of = table.row_of
-            for name in changed:
-                row = row_of.get(name)
-                node = c.node[row] if row is not None else None
-                if node != self.node_name:
-                    if name in idx_of:
-                        return False  # moved off this node
-                    continue  # another provider's pod: not our work
+            rows = table.rows_for(probe)
+            found = rows >= 0
+            here = found & (c.node[np.where(found, rows, 0)] == self.node_name)
+            away = np.asarray(probe, dtype=object)[~here]
+            if not idx_of.keys().isdisjoint(away):
+                return None  # a member moved off this node
+            hk = np.flatnonzero(here)
+            hrows = rows[hk]
+            if c.deleted[hrows].any():
+                return None  # deletion work: converge/classify
+            sizecar = (c.role[hrows] == PodRole.SIZECAR).tolist()
+            njobs = c.njobs[hrows].tolist()
+            ph = c.phase[hrows]
+            terminal = ((ph == _PH_SUCCEEDED) | (ph == _PH_FAILED)).tolist()
+            hrows_l = hrows.tolist()
+            for k, x in enumerate(hk.tolist()):
+                name, row = probe[x], hrows_l[k]
                 i = idx_of.get(name)
                 if i is None:
-                    if c.role[row] != PodRole.SIZECAR and not c.deleted[row]:
-                        # a worker pod here: never submitted, mirrored
-                        # or deleted by this provider, so the full
+                    if not sizecar[k]:
+                        # a worker pod here: never submitted, mirrored or
+                        # deleted by this provider, so the full
                         # classification would not see it either
                         continue
-                    return False  # new pod here: converge/classify
+                    if njobs[k] == 0:
+                        items.append((name, row))
+                    elif not terminal[k]:
+                        joins.append((name, row))
+                    continue
                 if (
-                    c.deleted[row]
-                    or c.role[row] != PodRole.SIZECAR
-                    or c.njobs[row] == 0
-                    or c.phase[row] == _PH_SUCCEEDED
-                    or c.phase[row] == _PH_FAILED
+                    not sizecar[k]
+                    or njobs[k] == 0
                     or c.job_ids[row] != rb.job_ids[i]
                 ):
-                    return False  # left the live set / ids moved
-                rb.rv[i] = c.rv[row]
-                rb.phase[i] = c.phase[row]
-                rb.istart[i] = c.istart[row]
-                rb.ilen[i] = c.ilen[row]
-                self.mirror_scoped_rows += 1
+                    return None  # ids moved
+                if terminal[k]:
+                    leaves.append(i)
+                else:
+                    moved.append(i)
+                    moved_rows.append(row)
+            if moved:
+                rb.rv[moved] = c.rv[moved_rows]
+                rb.phase[moved] = c.phase[moved_rows]
+                rb.ilen[moved] = c.ilen[moved_rows]
+            items.sort()
+            submit = [self._submit_item(c, n, r) for n, r in items]
+            if joins or leaves:
+                mc = self._patch_members(c, mc, joins, leaves)
         self.mirror_scans_scoped += 1
-        return True
+        self.mirror_scoped_rows += len(moved)
+        self.mirror_patched_joins += len(joins)
+        self.mirror_patched_leaves += len(leaves)
+        span.set_tag("scan", "patched")
+        span.count("joins", len(joins))
+        span.count("leaves", len(leaves))
+        return mc, submit
+
+    def _patch_members(
+        self, c, mc: _MirrorCache, joins: list, leaves: list
+    ) -> _MirrorCache:
+        """A new working set from ``mc`` with the ``joins`` (``(name,
+        row)``) inserted and the members at ``leaves`` taken out — what
+        the full classification would build, id set and chunk count
+        included. Call with the store lock held."""
+        rb = mc.rb
+        joins.sort()
+        leaves.sort()
+        jnames = [n for n, _ in joins]
+        jrows = np.asarray([r for _, r in joins], np.int64)
+        jids = [c.job_ids[r] for r in jrows.tolist()]
+        at = [bisect.bisect_left(rb.names, n) for n in jnames]
+        drop = np.asarray(leaves, np.intp)
+        pos = np.asarray(at, np.intp) - np.searchsorted(drop, at)
+
+        def arr(a, col):
+            return np.insert(np.delete(a, drop), pos, col[jrows])
+
+        names = _splice(rb.names, leaves, at, jnames)
+        new_rb = _RefreshBatch(
+            names=names,
+            job_ids=_splice(rb.job_ids, leaves, at, jids),
+            rv=arr(rb.rv, c.rv),
+            phase=arr(rb.phase, c.phase),
+            ilen=arr(rb.ilen, c.ilen),
+        )
+        # the id list: a leave's ids go when no other member holds them,
+        # a join's new ids are appended (never applied: full chunks). The
+        # routes are copied, not edited: a concurrent sync may still be
+        # applying a status pass over ``mc``
+        names_of = dict(mc.names_of_jid)
+        gone: list[int] = []
+        for i in leaves:
+            name = rb.names[i]
+            for jid in rb.job_ids[i]:
+                held = names_of.pop(jid)
+                if held != (name,):
+                    rest = tuple(n for n in held if n != name)
+                    if rest:
+                        names_of[jid] = rest
+                        continue
+                gone.append(jid)
+        added: list[int] = []
+        for name, jt in zip(jnames, jids):
+            for jid in jt:
+                held = names_of.get(jid)
+                if held is None:
+                    names_of[jid] = (name,)
+                    added.append(jid)
+                else:
+                    names_of[jid] = held + (name,)
+        applied = self._applied_ids
+        applied.difference_update(gone)
+        ids, unapplied, reqs = mc.ids, mc.unapplied, mc.reqs
+        first = ids.size
+        if gone:
+            g = np.sort(np.asarray(gone, np.int64))
+            keep = g[np.minimum(np.searchsorted(g, ids), g.size - 1)] != ids
+            first = int(np.argmin(keep))
+            ids, unapplied = ids[keep], unapplied[keep]
+        if added:
+            ids = np.concatenate([ids, np.asarray(added, np.int64)])
+            unapplied = np.concatenate([
+                unapplied,
+                np.fromiter((j not in applied for j in added), bool, len(added)),
+            ])
+        if gone or added:
+            # the chunks before the first edit hold the same ids
+            k0 = first // _BULK_CHUNK
+            reqs = reqs[:k0] + [
+                pb.JobsInfoRequest(job_ids=ids[lo : lo + _BULK_CHUNK].tolist())
+                for lo in range(k0 * _BULK_CHUNK, ids.size, _BULK_CHUNK)
+            ]
+        return _MirrorCache(
+            new_rb, ids, reqs, names_of, _full_chunks(unapplied),
+            dict(zip(names, range(len(names)))), unapplied,
+        )
 
     def _build_mirror_cache(self, rb: _RefreshBatch) -> _MirrorCache:
         """Derive the cursor sync's cross-tick state from one
@@ -1172,32 +1368,32 @@ class VirtualNodeProvider:
         this provider has never applied a response for appended last —
         pre-built chunk requests (chunk COUNT equals the full path's for
         the same working set, which is what keeps fault-injection draw
-        sequences identical between modes), and the jid → batch-index
+        sequences identical between modes), and the jid → member names
         route."""
         applied = self._applied_ids
         old_ids: list[int] = []
         new_ids: list[int] = []
-        seen: set[int] = set()
-        idx_of: dict[int, tuple] = {}
-        for i, jt in enumerate(rb.job_ids):
+        names_of: dict[int, tuple] = {}
+        for name, jt in zip(rb.names, rb.job_ids):
             for jid in jt:
-                if jid not in seen:
-                    seen.add(jid)
+                prev = names_of.get(jid)
+                if prev is None:
+                    names_of[jid] = (name,)
                     (old_ids if jid in applied else new_ids).append(jid)
-                prev = idx_of.get(jid)
-                idx_of[jid] = (i,) if prev is None else prev + (i,)
+                else:
+                    names_of[jid] = prev + (name,)
         ids = old_ids + new_ids
         reqs = [
             pb.JobsInfoRequest(job_ids=ids[lo : lo + _BULK_CHUNK])
             for lo in range(0, len(ids), _BULK_CHUNK)
         ]
-        n_old = len(old_ids)
-        full_chunk = [
-            lo + _BULK_CHUNK > n_old and lo < len(ids)
-            for lo in range(0, len(ids), _BULK_CHUNK)
-        ]
+        unapplied = np.zeros(len(ids), bool)
+        unapplied[len(old_ids) :] = True
         idx_of_name = {name: i for i, name in enumerate(rb.names)}
-        return _MirrorCache(rb, ids, reqs, idx_of, full_chunk, idx_of_name)
+        return _MirrorCache(
+            rb, np.asarray(ids, np.int64), reqs, names_of,
+            _full_chunks(unapplied), idx_of_name, unapplied,
+        )
 
     def _fail_pod_name(self, name: str, reason: str) -> None:
         def record(p: Pod):
@@ -1754,13 +1950,13 @@ class VirtualNodeProvider:
         else:
             span.count("writes", 0)
         self._jobs_cursor = new_cursor
-        if mc is not self._applied_mc:
-            self._applied_ids = set(mc.ids)
-            self._applied_mc = mc
+        # the classification already dropped the ids that left the set
+        self._applied_ids.update(mc.ids[mc.unapplied].tolist())
         # every id in the working set is now applied: later passes over
         # the SAME cache must query every chunk at the cursor — leaving a
         # tail chunk flagged "full" would re-deliver its ~2000 unchanged
         # entries every steady tick (decode cost for nothing)
+        mc.unapplied[:] = False
         for k in range(len(mc.full_chunk)):
             mc.full_chunk[k] = False
 
@@ -1774,8 +1970,10 @@ class VirtualNodeProvider:
         row_of_jid = scratch.row_of_jid
         cand: list[int] = []
         seen: set[int] = set()
+        idx_of = mc.idx_of_name
         for jid in row_of_jid:
-            for i in mc.idx_of_jid.get(jid, ()):
+            for name in mc.names_of_jid.get(jid, ()):
+                i = idx_of[name]
                 if i not in seen:
                     seen.add(i)
                     cand.append(i)

@@ -1373,7 +1373,7 @@ class SimHarness:
         # pending scan and inventory, the first part of "other", the
         # solve's repair and host syncs, and the tick thread's share of
         # the mirror (submits, status reads and fetch waits, the sweep
-        # with the reconciles it settles)
+        # with the reconciles it settles, the providers' classification)
         phases["store.pending"] = sched.get("scheduler.store.pending", 0.0)
         phases["store.inventory"] = sched.get("scheduler.store.inventory", 0.0)
         phases["prepare"] = sched.get("scheduler.prepare", 0.0)
@@ -1386,6 +1386,7 @@ class SimHarness:
             "sim.mirror.fetch_wait", 0.0
         )
         phases["mirror.sweep"] = mirror.get("operator.sweep", 0.0)
+        phases["mirror.classify"] = mirror.get("vnode.classify", 0.0)
 
         with TRACER.span("sim.verify"):
             self.cluster.step()

@@ -213,6 +213,19 @@ ALLOWED = {
          '                for name in names_sel:\n'
          '                    tombs.pop(name, None)\n'
          '            for q, kinds in self._watchers_snapshot:\n'),
+        # the dirty-set probe filters the write log one dirty dict at a time, with no generator per name
+        (
+            '                dirty = [self._changed.get(kind, {}), *(parts or {}).values()]\n'
+            '                changed = sorted(\n'
+            '                    n for n in logged\n'
+            '                    if any(d.get(n, 0) > since_rv for d in dirty)\n'
+            '                )\n',
+            '                keep: set[str] = set()\n'
+            '                for d in (self._changed.get(kind, {}), *(parts or {}).values()):\n'
+            '                    get = d.get\n'
+            '                    keep.update([n for n in logged if get(n, 0) > since_rv])\n'
+            '                changed = sorted(keep)\n',
+        ),
     ],
     "policy/classes.py": [],
     "policy/fairshare.py": [],
@@ -520,6 +533,649 @@ ALLOWED = {
          "        if mc is not self._applied_mc:\n"
          "            self._applied_ids = set(mc.ids)\n"
          "            self._applied_mc = mc\n"),
+        # the mirror's working set patched for joins and leaves across churn syncs
+        (
+            'import dataclasses\n',
+            'import bisect\n'
+            'import dataclasses\n',
+        ),
+        (
+            '    pass: names, per-pod job ids, and the stored row state to diff\n'
+            '    against."""\n'
+            '\n'
+            '    names: list\n'
+            '    job_ids: list\n'
+            '    rv: np.ndarray\n'
+            '    phase: np.ndarray\n'
+            '    istart: np.ndarray\n',
+            '    pass: names (name-sorted), per-pod job ids, and the stored row state\n'
+            "    to diff against. The info segments' offsets are not kept: a heap\n"
+            '    compaction moves them without a write, so the diff reads them under\n'
+            '    its own lock."""\n'
+            '\n'
+            '    names: list\n'
+            '    job_ids: list\n'
+            '    rv: np.ndarray\n'
+            '    phase: np.ndarray\n',
+        ),
+        (
+            '    (``since_version`` is restamped per tick), and the job-id → batch\n'
+            '    index map that routes an agent-reported change back to its pod.\n'
+            "    Valid exactly while the store's Pod dirty-set stays empty; any pod\n"
+            '    write (ours included) invalidates it and the next sync reclassifies.\n'
+            '    """\n'
+            '\n'
+            '    rb: _RefreshBatch\n'
+            '    ids: list\n'
+            '    reqs: list\n'
+            '    idx_of_jid: dict\n',
+            '    (``since_version`` is restamped per tick), and the job-id → pod\n'
+            '    names map that routes an agent-reported change back to its pod.\n'
+            '    Each sync patches it for the pods written since the last one (see\n'
+            '    :meth:`VirtualNodeProvider._rescope_mirror_cache`); a deletion, a\n'
+            "    member moving off the node or a member's job ids moving drop it and\n"
+            '    the node bucket is reclassified.\n'
+            '    """\n'
+            '\n'
+            '    rb: _RefreshBatch\n'
+            '    #: the unique job ids (int64), in request order\n'
+            '    ids: np.ndarray\n'
+            '    reqs: list\n'
+            '    #: job id → names of the members holding it: keyed by name, so a\n'
+            "    #: join or leave renumbers no other member's entry\n"
+            '    names_of_jid: dict\n',
+        ),
+        (
+            '\n'
+            '#: gRPC codes meaning "the agent is unreachable / busy", not "the request\n',
+            '    #: per id of ``ids``: True while no status response has been applied\n'
+            '    #: for it — the source of ``full_chunk`` when a patch re-chunks\n'
+            '    unapplied: np.ndarray\n'
+            '\n'
+            '\n'
+            'def _splice(seq: list, drop: list, at: list, vals: list) -> list:\n'
+            '    """``seq`` without the positions ``drop`` (ascending), with ``vals[k]``\n'
+            '    inserted before old position ``at[k]`` (ascending): list slices\n'
+            '    between the edits, so the Python-level work is O(edits)."""\n'
+            '    out: list = []\n'
+            '    lo = d = k = 0\n'
+            '    while d < len(drop) or k < len(at):\n'
+            '        if k < len(at) and (d == len(drop) or at[k] <= drop[d]):\n'
+            '            out += seq[lo : at[k]]\n'
+            '            out.append(vals[k])\n'
+            '            lo = at[k]\n'
+            '            k += 1\n'
+            '        else:\n'
+            '            out += seq[lo : drop[d]]\n'
+            '            lo = drop[d] + 1\n'
+            '            d += 1\n'
+            '    out += seq[lo:]\n'
+            '    return out\n'
+            '\n'
+            '\n'
+            'def _full_chunks(unapplied: np.ndarray) -> list:\n'
+            '    """Per ``_BULK_CHUNK`` chunk of an id list: whether it holds an id\n'
+            '    with no status response applied yet (queried at since_version 0)."""\n'
+            '    if not unapplied.size:\n'
+            '        return []\n'
+            '    starts = np.arange(0, unapplied.size, _BULK_CHUNK)\n'
+            '    return np.logical_or.reduceat(unapplied, starts).tolist()\n'
+            '\n'
+            '\n'
+            '#: gRPC codes meaning "the agent is unreachable / busy", not "the request\n',
+        ),
+        (
+            '        self._mirror_cache: _MirrorCache | None = None\n',
+            '        self._mirror_cache: _MirrorCache | None = None\n'
+            '        #: the names the last sync submitted: the next one re-examines\n'
+            '        #: them beside the dirty names, since a submit that failed\n'
+            '        #: transiently leaves no store trace and must be retried\n'
+            '        self._resubmit: list[str] = []\n'
+            '        #: one incremental sync at a time: sync() runs concurrently (the\n'
+            '        #: partition ticker and sync_now callers), and the cursor, the kept\n'
+            '        #: working set and the status passes over it move together\n'
+            '        self._sync_lock = threading.RLock()\n',
+        ),
+        (
+            '        #: pins classification work ∝ changed names, not O(cluster)\n'
+            '        self.mirror_scans_full = 0\n'
+            '        self.mirror_scans_scoped = 0\n'
+            '        self.mirror_scoped_rows = 0\n'
+            '        #: agent-side cursors: jobs-state / nodes-state versions last\n'
+            '        #: fully applied (0 = no cursor yet → full responses)\n'
+            '        self._jobs_cursor = 0\n'
+            '        #: job ids a status response has actually been APPLIED for — the\n'
+            '        #: cursor is only trusted for these; anything else queries full\n'
+            '        self._applied_ids: set[int] = set()\n'
+            '        #: the working set ``_applied_ids`` was last built from: a cursor\n'
+            '        #: pass over the same cache re-applies the same ids\n'
+            '        self._applied_mc: _MirrorCache | None = None\n',
+            '        #: pins classification work ∝ changed names, not O(cluster) —\n'
+            '        #: and the live pods the patches added to and took out of the\n'
+            '        #: working set\n'
+            '        self.mirror_scans_full = 0\n'
+            '        self.mirror_scans_scoped = 0\n'
+            '        self.mirror_scoped_rows = 0\n'
+            '        self.mirror_patched_joins = 0\n'
+            '        self.mirror_patched_leaves = 0\n'
+            '        #: agent-side cursors: jobs-state / nodes-state versions last\n'
+            '        #: fully applied (0 = no cursor yet → full responses)\n'
+            '        self._jobs_cursor = 0\n'
+            '        #: job ids a status response has actually been APPLIED for — the\n'
+            '        #: cursor is only trusted for these; anything else queries full\n'
+            '        self._applied_ids: set[int] = set()\n',
+        ),
+        (
+            '                self._sync_cols(table, span, t0)\n',
+            '                if self.incremental:\n'
+            '                    with self._sync_lock:\n'
+            '                        self._sync_cols(table, span, t0)\n'
+            '                else:\n'
+            '                    self._sync_cols(table, span, t0)\n',
+        ),
+        (
+            '        classification (full, scoped, or skipped via the dirty-set),\n',
+            '        classification (full, patched, or skipped via the dirty-set),\n',
+        ),
+        (
+            '        if self.incremental:\n'
+            '            rv, changed, deleted = self.store.changes_since(\n'
+            '                Pod.KIND, self._scan_rv\n'
+            '            )\n'
+            '            mc = self._mirror_cache\n'
+            '            if not changed and not deleted and mc is not None:\n'
+            '                span.count("converge_pods", 0)\n'
+            '                span.count("refresh_pods", len(mc.rb.names))\n'
+            '                return "incr", mc\n'
+            '            if mc is not None and self._rescope_mirror_cache(\n'
+            '                table, mc, changed, deleted\n'
+            '            ):\n'
+            '                # satellite a: the dirty names were either foreign pods\n'
+            "                # (other providers' — the O(cluster)-per-write trap) or\n"
+            '                # membership-preserving status moves, patched in place —\n'
+            '                # classification work was ∝ changed names, and the\n'
+            '                # cursor sync below reuses the SAME working set\n'
+            '                self._scan_rv = rv\n'
+            '                span.count("converge_pods", 0)\n'
+            '                span.count("refresh_pods", len(mc.rb.names))\n'
+            '                return "incr", mc\n'
+            '            self._scan_rv = rv\n'
+            '            self._mirror_cache = None\n'
+            '            self.mirror_scans_full += 1\n'
+            '        c = table.cols\n'
+            '        with self.store.locked():\n'
+            '            # names→rows resolved under the SAME lock hold as the column\n'
+            '            # reads: a delete+create between the two would recycle a row\n'
+            "            # index and pair a name with another pod's columns\n"
+            '            names, rows = self.store.rows_by_node(Pod.KIND, self.node_name)\n'
+            '            if not names:\n'
+            '                span.count("converge_pods", 0)\n'
+            '                span.count("refresh_pods", 0)\n'
+            '                now = time.perf_counter()\n'
+            '                _status_seconds.observe(0.0)\n'
+            '                _sync_seconds.observe(now - t0)\n'
+            '                return "done", None\n'
+            '            deleted = c.deleted[rows]\n'
+            '            sizecar = c.role[rows] == PodRole.SIZECAR\n'
+            '            njobs = c.njobs[rows]\n'
+            '            phase = c.phase[rows]\n'
+            '            rv = c.rv[rows]\n'
+            '            live = (\n'
+            '                sizecar\n'
+            '                & ~deleted\n'
+            '                & (njobs > 0)\n'
+            '                & (phase != _PH_SUCCEEDED)\n'
+            '                & (phase != _PH_FAILED)\n'
+            '            )\n'
+            '            submit_mask = sizecar & ~deleted & (njobs == 0)\n'
+            '            items: list[_SubmitItem] = []\n'
+            '            for i in np.nonzero(submit_mask)[0].tolist():\n'
+            '                row = int(rows[i])\n'
+            '                ann = c.ann[row]\n'
+            '                items.append(_SubmitItem(\n'
+            '                    names[i], c.demand[row], c.uid[row],\n'
+            '                    ann.get("submit-generation", ""), c.hint[row],\n'
+            '                    int(rv[i]), c.labels[row], ann,\n'
+            '                ))\n'
+            '            ri = np.nonzero(live)[0]\n'
+            '            rrows = rows[ri]\n'
+            '            refresh = _RefreshBatch(\n'
+            '                names=[names[i] for i in ri.tolist()],\n'
+            '                job_ids=[c.job_ids[int(r)] for r in rrows.tolist()],\n'
+            '                rv=rv[ri],\n'
+            '                phase=phase[ri],\n'
+            '                istart=c.istart[rrows],\n'
+            '                ilen=c.ilen[rrows],\n'
+            '            )\n'
+            '            work_names = [names[i] for i in np.nonzero(deleted)[0].tolist()]\n',
+            '        mc = None\n'
+            '        with TRACER.span("vnode.classify"):\n'
+            '            if not self.incremental:\n'
+            '                items, work_names, refresh = self._classify_full(table)\n'
+            '            else:\n'
+            '                with self._sync_lock:\n'
+            '                    items, work_names, refresh, mc = self._classify_incr(\n'
+            '                        table, span\n'
+            '                    )\n'
+            '                    # a terminate that failed transiently leaves no store\n'
+            '                    # trace either: the full classification retries it\n'
+            '                    self._mirror_cache = mc if not work_names else None\n'
+            '                    self._resubmit = [it.name for it in items]\n'
+            '        if refresh is None:\n'
+            '            span.count("converge_pods", 0)\n'
+            '            span.count("refresh_pods", 0)\n'
+            '            now = time.perf_counter()\n'
+            '            _status_seconds.observe(0.0)\n'
+            '            _sync_seconds.observe(now - t0)\n'
+            '            return "done", None\n',
+        ),
+        (
+            '            mc = self._build_mirror_cache(refresh)\n'
+            '            # the cache survives to the next tick ONLY when this sync had\n'
+            '            # no per-pod converge work: a submit that failed TRANSIENTLY\n'
+            '            # (agent unavailable) leaves no store trace, and a cached\n'
+            '            # steady skip would silently drop the level-triggered retry\n'
+            '            # the full mirror repeats every sync. A successful converge\n'
+            '            # wrote job ids anyway, so the next tick reclassifies either\n'
+            '            # way — one extra O(pods-on-node) pass per converge tick.\n'
+            '            self._mirror_cache = (\n'
+            '                mc if not items and not work_names else None\n'
+            '            )\n'
+            '            return "incr", mc\n'
+            '        return "full", refresh\n'
+            '\n'
+            '    def _rescope_mirror_cache(\n'
+            '        self, table, mc: _MirrorCache, changed, deleted\n'
+            '    ) -> bool:\n',
+            '            return "incr", mc\n'
+            '        return "full", refresh\n'
+            '\n'
+            '    def _classify_incr(self, table, span):\n'
+            '        """The incremental classification: ``(items, work_names,\n'
+            "        refresh, mirror cache)``. Consults the store's Pod dirty-set\n"
+            '        first: with nothing written and nothing to resubmit, the kept\n'
+            '        working set drives the cursor sync as it is; otherwise it is\n'
+            '        patched for the written names, and only what the patch refuses\n'
+            '        reclassifies the node bucket."""\n'
+            '        rv, changed, deleted = self.store.changes_since(\n'
+            '            Pod.KIND, self._scan_rv\n'
+            '        )\n'
+            '        mc = self._mirror_cache\n'
+            '        if mc is not None:\n'
+            '            if not changed and not deleted and not self._resubmit:\n'
+            '                return [], [], mc.rb, mc\n'
+            '            patched = self._rescope_mirror_cache(\n'
+            '                table, mc, changed, deleted, span\n'
+            '            )\n'
+            '            if patched is not None:\n'
+            '                self._scan_rv = rv\n'
+            '                mc, items = patched\n'
+            '                return items, [], mc.rb, mc\n'
+            '        self._scan_rv = rv\n'
+            '        self.mirror_scans_full += 1\n'
+            '        span.set_tag("scan", "full")\n'
+            '        items, work_names, refresh = self._classify_full(table)\n'
+            '        if refresh is None:\n'
+            '            return items, work_names, None, None\n'
+            '        mc = self._build_mirror_cache(refresh)\n'
+            '        # ids that left the working set stop counting as applied\n'
+            '        self._applied_ids.intersection_update(mc.ids.tolist())\n'
+            '        return items, work_names, refresh, mc\n'
+            '\n'
+            '    @staticmethod\n'
+            '    def _submit_item(c, name: str, row: int) -> _SubmitItem:\n'
+            '        ann = c.ann[row]\n'
+            '        return _SubmitItem(\n'
+            '            name, c.demand[row], c.uid[row],\n'
+            '            ann.get("submit-generation", ""), c.hint[row],\n'
+            '            int(c.rv[row]), c.labels[row], ann,\n'
+            '        )\n'
+            '\n'
+            '    def _classify_full(self, table):\n'
+            '        """One pass over the provider\'s whole node bucket: ``(submit\n'
+            '        items, deletion names, refresh batch)``, each in name order; the\n'
+            '        refresh batch is None when the bucket is empty."""\n'
+            '        c = table.cols\n'
+            '        with self.store.locked():\n'
+            '            # names→rows resolved under the SAME lock hold as the column\n'
+            '            # reads: a delete+create between the two would recycle a row\n'
+            "            # index and pair a name with another pod's columns\n"
+            '            names, rows = self.store.rows_by_node(Pod.KIND, self.node_name)\n'
+            '            if not names:\n'
+            '                return [], [], None\n'
+            '            deleted = c.deleted[rows]\n'
+            '            sizecar = c.role[rows] == PodRole.SIZECAR\n'
+            '            njobs = c.njobs[rows]\n'
+            '            phase = c.phase[rows]\n'
+            '            rv = c.rv[rows]\n'
+            '            live = (\n'
+            '                sizecar\n'
+            '                & ~deleted\n'
+            '                & (njobs > 0)\n'
+            '                & (phase != _PH_SUCCEEDED)\n'
+            '                & (phase != _PH_FAILED)\n'
+            '            )\n'
+            '            submit_mask = sizecar & ~deleted & (njobs == 0)\n'
+            '            items = [\n'
+            '                self._submit_item(c, names[i], int(rows[i]))\n'
+            '                for i in np.nonzero(submit_mask)[0].tolist()\n'
+            '            ]\n'
+            '            ri = np.nonzero(live)[0]\n'
+            '            rrows = rows[ri]\n'
+            '            refresh = _RefreshBatch(\n'
+            '                names=[names[i] for i in ri.tolist()],\n'
+            '                job_ids=[c.job_ids[int(r)] for r in rrows.tolist()],\n'
+            '                rv=rv[ri],\n'
+            '                phase=phase[ri],\n'
+            '                ilen=c.ilen[rrows],\n'
+            '            )\n'
+            '            work_names = [names[i] for i in np.nonzero(deleted)[0].tolist()]\n'
+            '        return items, work_names, refresh\n'
+            '\n'
+            '    def _rescope_mirror_cache(\n'
+            '        self, table, mc: _MirrorCache, changed, deleted, span\n'
+            '    ):\n',
+        ),
+        (
+            '        Exactly the membership-preserving cases are handled in place —\n'
+            "        a live member's rv/phase/status-row moved (our own mirror\n"
+            '        writes, agent transitions short of terminal), and writes to\n'
+            '        pods on OTHER nodes, which this provider previously paid an\n'
+            '        O(bucket) rescan for despite owning none of them. Anything that\n'
+            '        changes membership or needs converge work — a new\n'
+            '        submit-eligible pod on this node, a deletion, a terminal\n'
+            '        transition, moved job ids — returns False and the caller runs\n'
+            '        the full classification, as before.\n'
+            '        """\n'
+            '        idx_of = mc.idx_of_name\n'
+            '        for name in deleted:\n'
+            '            if name in idx_of:\n'
+            '                return False  # tombstoned member: membership change\n'
+            '        rb = mc.rb\n'
+            '        with self.store.locked():\n'
+            '            c = table.cols\n'
+            '            row_of = table.row_of\n'
+            '            for name in changed:\n'
+            '                row = row_of.get(name)\n'
+            '                node = c.node[row] if row is not None else None\n'
+            '                if node != self.node_name:\n'
+            '                    if name in idx_of:\n'
+            '                        return False  # moved off this node\n'
+            "                    continue  # another provider's pod: not our work\n"
+            '                i = idx_of.get(name)\n'
+            '                if i is None:\n'
+            '                    if c.role[row] != PodRole.SIZECAR and not c.deleted[row]:\n'
+            '                        # a worker pod here: never submitted, mirrored\n'
+            '                        # or deleted by this provider, so the full\n'
+            '                        # classification would not see it either\n'
+            '                        continue\n'
+            '                    return False  # new pod here: converge/classify\n'
+            '                if (\n'
+            '                    c.deleted[row]\n'
+            '                    or c.role[row] != PodRole.SIZECAR\n'
+            '                    or c.njobs[row] == 0\n'
+            '                    or c.phase[row] == _PH_SUCCEEDED\n'
+            '                    or c.phase[row] == _PH_FAILED\n'
+            '                    or c.job_ids[row] != rb.job_ids[i]\n'
+            '                ):\n'
+            '                    return False  # left the live set / ids moved\n'
+            '                rb.rv[i] = c.rv[row]\n'
+            '                rb.phase[i] = c.phase[row]\n'
+            '                rb.istart[i] = c.istart[row]\n'
+            '                rb.ilen[i] = c.ilen[row]\n'
+            '                self.mirror_scoped_rows += 1\n'
+            '        self.mirror_scans_scoped += 1\n'
+            '        return True\n',
+            '        The names the last sync submitted are re-examined too: a submit\n'
+            '        that failed transiently leaves no store trace. Returns ``(mirror\n'
+            '        cache, submit items)``, or None when the full classification\n'
+            '        must run.\n'
+            '\n'
+            '        Handled here, each the way the full classification would see it:\n'
+            '        writes to pods on OTHER nodes (ignored), worker pods here\n'
+            "        (ignored), a live member's rv/phase/status-row moves (patched in\n"
+            '        place), a submit-eligible pod here (a submit item), a live pod\n'
+            '        new to the set (a join: inserted at its name-sorted place, its\n'
+            '        ids appended to the id list — mostly the pods this provider\n'
+            '        submitted last sync), a member turned SUCCEEDED or FAILED (a\n'
+            '        leave: taken out with the ids no other member holds). A deletion\n'
+            "        here, a member moving off the node and a member's job ids moving\n"
+            '        return None. The work is O(changed names + joins + leaves) in\n'
+            '        Python; what is O(members) is list slicing and array work.\n'
+            '        """\n'
+            '        idx_of = mc.idx_of_name\n'
+            '        if not idx_of.keys().isdisjoint(deleted):\n'
+            '            return None  # tombstoned member: membership change\n'
+            "        # the last sync's submits, unless written since (``changed`` is\n"
+            '        # name-sorted)\n'
+            '        probe = changed + [\n'
+            '            n for n in self._resubmit\n'
+            '            if (k := bisect.bisect_left(changed, n)) == len(changed)\n'
+            '            or changed[k] != n\n'
+            '        ]\n'
+            '        rb = mc.rb\n'
+            '        items: list[tuple[str, int]] = []\n'
+            '        joins: list[tuple[str, int]] = []\n'
+            '        leaves: list[int] = []\n'
+            '        moved: list[int] = []  # batch indices of in-place patches\n'
+            '        moved_rows: list[int] = []\n'
+            '        with self.store.locked():\n'
+            '            c = table.cols\n'
+            '            rows = table.rows_for(probe)\n'
+            '            found = rows >= 0\n'
+            '            here = found & (c.node[np.where(found, rows, 0)] == self.node_name)\n'
+            '            away = np.asarray(probe, dtype=object)[~here]\n'
+            '            if not idx_of.keys().isdisjoint(away):\n'
+            '                return None  # a member moved off this node\n'
+            '            hk = np.flatnonzero(here)\n'
+            '            hrows = rows[hk]\n'
+            '            if c.deleted[hrows].any():\n'
+            '                return None  # deletion work: converge/classify\n'
+            '            sizecar = (c.role[hrows] == PodRole.SIZECAR).tolist()\n'
+            '            njobs = c.njobs[hrows].tolist()\n'
+            '            ph = c.phase[hrows]\n'
+            '            terminal = ((ph == _PH_SUCCEEDED) | (ph == _PH_FAILED)).tolist()\n'
+            '            hrows_l = hrows.tolist()\n'
+            '            for k, x in enumerate(hk.tolist()):\n'
+            '                name, row = probe[x], hrows_l[k]\n'
+            '                i = idx_of.get(name)\n'
+            '                if i is None:\n'
+            '                    if not sizecar[k]:\n'
+            '                        # a worker pod here: never submitted, mirrored or\n'
+            '                        # deleted by this provider, so the full\n'
+            '                        # classification would not see it either\n'
+            '                        continue\n'
+            '                    if njobs[k] == 0:\n'
+            '                        items.append((name, row))\n'
+            '                    elif not terminal[k]:\n'
+            '                        joins.append((name, row))\n'
+            '                    continue\n'
+            '                if (\n'
+            '                    not sizecar[k]\n'
+            '                    or njobs[k] == 0\n'
+            '                    or c.job_ids[row] != rb.job_ids[i]\n'
+            '                ):\n'
+            '                    return None  # ids moved\n'
+            '                if terminal[k]:\n'
+            '                    leaves.append(i)\n'
+            '                else:\n'
+            '                    moved.append(i)\n'
+            '                    moved_rows.append(row)\n'
+            '            if moved:\n'
+            '                rb.rv[moved] = c.rv[moved_rows]\n'
+            '                rb.phase[moved] = c.phase[moved_rows]\n'
+            '                rb.ilen[moved] = c.ilen[moved_rows]\n'
+            '            items.sort()\n'
+            '            submit = [self._submit_item(c, n, r) for n, r in items]\n'
+            '            if joins or leaves:\n'
+            '                mc = self._patch_members(c, mc, joins, leaves)\n'
+            '        self.mirror_scans_scoped += 1\n'
+            '        self.mirror_scoped_rows += len(moved)\n'
+            '        self.mirror_patched_joins += len(joins)\n'
+            '        self.mirror_patched_leaves += len(leaves)\n'
+            '        span.set_tag("scan", "patched")\n'
+            '        span.count("joins", len(joins))\n'
+            '        span.count("leaves", len(leaves))\n'
+            '        return mc, submit\n'
+            '\n'
+            '    def _patch_members(\n'
+            '        self, c, mc: _MirrorCache, joins: list, leaves: list\n'
+            '    ) -> _MirrorCache:\n'
+            '        """A new working set from ``mc`` with the ``joins`` (``(name,\n'
+            '        row)``) inserted and the members at ``leaves`` taken out — what\n'
+            '        the full classification would build, id set and chunk count\n'
+            '        included. Call with the store lock held."""\n'
+            '        rb = mc.rb\n'
+            '        joins.sort()\n'
+            '        leaves.sort()\n'
+            '        jnames = [n for n, _ in joins]\n'
+            '        jrows = np.asarray([r for _, r in joins], np.int64)\n'
+            '        jids = [c.job_ids[r] for r in jrows.tolist()]\n'
+            '        at = [bisect.bisect_left(rb.names, n) for n in jnames]\n'
+            '        drop = np.asarray(leaves, np.intp)\n'
+            '        pos = np.asarray(at, np.intp) - np.searchsorted(drop, at)\n'
+            '\n'
+            '        def arr(a, col):\n'
+            '            return np.insert(np.delete(a, drop), pos, col[jrows])\n'
+            '\n'
+            '        names = _splice(rb.names, leaves, at, jnames)\n'
+            '        new_rb = _RefreshBatch(\n'
+            '            names=names,\n'
+            '            job_ids=_splice(rb.job_ids, leaves, at, jids),\n'
+            '            rv=arr(rb.rv, c.rv),\n'
+            '            phase=arr(rb.phase, c.phase),\n'
+            '            ilen=arr(rb.ilen, c.ilen),\n'
+            '        )\n'
+            "        # the id list: a leave's ids go when no other member holds them,\n"
+            "        # a join's new ids are appended (never applied: full chunks). The\n"
+            '        # routes are copied, not edited: a concurrent sync may still be\n'
+            '        # applying a status pass over ``mc``\n'
+            '        names_of = dict(mc.names_of_jid)\n'
+            '        gone: list[int] = []\n'
+            '        for i in leaves:\n'
+            '            name = rb.names[i]\n'
+            '            for jid in rb.job_ids[i]:\n'
+            '                held = names_of.pop(jid)\n'
+            '                if held != (name,):\n'
+            '                    rest = tuple(n for n in held if n != name)\n'
+            '                    if rest:\n'
+            '                        names_of[jid] = rest\n'
+            '                        continue\n'
+            '                gone.append(jid)\n'
+            '        added: list[int] = []\n'
+            '        for name, jt in zip(jnames, jids):\n'
+            '            for jid in jt:\n'
+            '                held = names_of.get(jid)\n'
+            '                if held is None:\n'
+            '                    names_of[jid] = (name,)\n'
+            '                    added.append(jid)\n'
+            '                else:\n'
+            '                    names_of[jid] = held + (name,)\n'
+            '        applied = self._applied_ids\n'
+            '        applied.difference_update(gone)\n'
+            '        ids, unapplied, reqs = mc.ids, mc.unapplied, mc.reqs\n'
+            '        first = ids.size\n'
+            '        if gone:\n'
+            '            g = np.sort(np.asarray(gone, np.int64))\n'
+            '            keep = g[np.minimum(np.searchsorted(g, ids), g.size - 1)] != ids\n'
+            '            first = int(np.argmin(keep))\n'
+            '            ids, unapplied = ids[keep], unapplied[keep]\n'
+            '        if added:\n'
+            '            ids = np.concatenate([ids, np.asarray(added, np.int64)])\n'
+            '            unapplied = np.concatenate([\n'
+            '                unapplied,\n'
+            '                np.fromiter((j not in applied for j in added), bool, len(added)),\n'
+            '            ])\n'
+            '        if gone or added:\n'
+            '            # the chunks before the first edit hold the same ids\n'
+            '            k0 = first // _BULK_CHUNK\n'
+            '            reqs = reqs[:k0] + [\n'
+            '                pb.JobsInfoRequest(job_ids=ids[lo : lo + _BULK_CHUNK].tolist())\n'
+            '                for lo in range(k0 * _BULK_CHUNK, ids.size, _BULK_CHUNK)\n'
+            '            ]\n'
+            '        return _MirrorCache(\n'
+            '            new_rb, ids, reqs, names_of, _full_chunks(unapplied),\n'
+            '            dict(zip(names, range(len(names)))), unapplied,\n'
+            '        )\n',
+        ),
+        (
+            '        sequences identical between modes), and the jid → batch-index\n'
+            '        route."""\n'
+            '        applied = self._applied_ids\n'
+            '        old_ids: list[int] = []\n'
+            '        new_ids: list[int] = []\n'
+            '        seen: set[int] = set()\n'
+            '        idx_of: dict[int, tuple] = {}\n'
+            '        for i, jt in enumerate(rb.job_ids):\n'
+            '            for jid in jt:\n'
+            '                if jid not in seen:\n'
+            '                    seen.add(jid)\n'
+            '                    (old_ids if jid in applied else new_ids).append(jid)\n'
+            '                prev = idx_of.get(jid)\n'
+            '                idx_of[jid] = (i,) if prev is None else prev + (i,)\n'
+            '        ids = old_ids + new_ids\n'
+            '        reqs = [\n'
+            '            pb.JobsInfoRequest(job_ids=ids[lo : lo + _BULK_CHUNK])\n'
+            '            for lo in range(0, len(ids), _BULK_CHUNK)\n'
+            '        ]\n'
+            '        n_old = len(old_ids)\n'
+            '        full_chunk = [\n'
+            '            lo + _BULK_CHUNK > n_old and lo < len(ids)\n'
+            '            for lo in range(0, len(ids), _BULK_CHUNK)\n'
+            '        ]\n'
+            '        idx_of_name = {name: i for i, name in enumerate(rb.names)}\n'
+            '        return _MirrorCache(rb, ids, reqs, idx_of, full_chunk, idx_of_name)\n',
+            '        sequences identical between modes), and the jid → member names\n'
+            '        route."""\n'
+            '        applied = self._applied_ids\n'
+            '        old_ids: list[int] = []\n'
+            '        new_ids: list[int] = []\n'
+            '        names_of: dict[int, tuple] = {}\n'
+            '        for name, jt in zip(rb.names, rb.job_ids):\n'
+            '            for jid in jt:\n'
+            '                prev = names_of.get(jid)\n'
+            '                if prev is None:\n'
+            '                    names_of[jid] = (name,)\n'
+            '                    (old_ids if jid in applied else new_ids).append(jid)\n'
+            '                else:\n'
+            '                    names_of[jid] = prev + (name,)\n'
+            '        ids = old_ids + new_ids\n'
+            '        reqs = [\n'
+            '            pb.JobsInfoRequest(job_ids=ids[lo : lo + _BULK_CHUNK])\n'
+            '            for lo in range(0, len(ids), _BULK_CHUNK)\n'
+            '        ]\n'
+            '        unapplied = np.zeros(len(ids), bool)\n'
+            '        unapplied[len(old_ids) :] = True\n'
+            '        idx_of_name = {name: i for i, name in enumerate(rb.names)}\n'
+            '        return _MirrorCache(\n'
+            '            rb, np.asarray(ids, np.int64), reqs, names_of,\n'
+            '            _full_chunks(unapplied), idx_of_name, unapplied,\n'
+            '        )\n',
+        ),
+        (
+            '        if mc is not self._applied_mc:\n'
+            '            self._applied_ids = set(mc.ids)\n'
+            '            self._applied_mc = mc\n'
+            '        # every id in the working set is now applied: later passes over\n'
+            '        # the SAME cache must query every chunk at the cursor — leaving a\n'
+            '        # tail chunk flagged "full" would re-deliver its ~2000 unchanged\n'
+            '        # entries every steady tick (decode cost for nothing)\n',
+            '        # the classification already dropped the ids that left the set\n'
+            '        self._applied_ids.update(mc.ids[mc.unapplied].tolist())\n'
+            '        # every id in the working set is now applied: later passes over\n'
+            '        # the SAME cache must query every chunk at the cursor — leaving a\n'
+            '        # tail chunk flagged "full" would re-deliver its ~2000 unchanged\n'
+            '        # entries every steady tick (decode cost for nothing)\n'
+            '        mc.unapplied[:] = False\n',
+        ),
+        (
+            '        for jid in row_of_jid:\n'
+            '            for i in mc.idx_of_jid.get(jid, ()):\n',
+            '        idx_of = mc.idx_of_name\n'
+            '        for jid in row_of_jid:\n'
+            '            for name in mc.names_of_jid.get(jid, ()):\n'
+            '                i = idx_of[name]\n',
+        ),
     ],
     "bridge/configurator.py": [],
     "obs/flight.py": [
@@ -668,6 +1324,18 @@ ALLOWED = {
          '            "sim.mirror.fetch_wait", 0.0\n'
          "        )\n"
          '        phases["mirror.sweep"] = mirror.get("operator.sweep", 0.0)\n'),
+        # the providers' classification as the mirror's fourth part
+        (
+            '        # with the reconciles it settles)\n',
+            "        # with the reconciles it settles, the providers' classification)\n",
+        ),
+        (
+            '        phases["mirror.sweep"] = mirror.get("operator.sweep", 0.0)\n'
+            '\n',
+            '        phases["mirror.sweep"] = mirror.get("operator.sweep", 0.0)\n'
+            '        phases["mirror.classify"] = mirror.get("vnode.classify", 0.0)\n'
+            '\n',
+        ),
     ],
     "sim/scenarios.py": [],
     "sim/cli.py": [],

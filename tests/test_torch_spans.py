@@ -28,7 +28,7 @@ PART_SPANS = (
 #: what a tick's phase dict carries beside PHASES
 PARTS = (
     "store.pending", "store.inventory", "prepare", "solve.repair", "solve.host_syncs",
-    "mirror.submit", "mirror.status", "mirror.sweep",
+    "mirror.submit", "mirror.status", "mirror.sweep", "mirror.classify",
 )
 
 
@@ -72,11 +72,12 @@ def test_parts_lie_inside_their_phases():
         assert ph["tick"] == sum(ph[k] for k in PHASES)
         assert ph["store.pending"] + ph["store.inventory"] <= ph["store"] + 1e-9, t
         assert (ph["mirror.submit"] + ph["mirror.status"] + ph["mirror.sweep"]
-                <= ph["mirror"] + 1e-9), t
+                + ph["mirror.classify"] <= ph["mirror"] + 1e-9), t
         assert ph["prepare"] <= ph["other"] + 1e-9, t
         assert ph["solve.repair"] <= ph["solve"] + 1e-9, t
     assert sum(t["store.inventory"] for t in ticks) > 0
     assert sum(t["mirror.status"] for t in ticks) > 0
+    assert sum(t["mirror.classify"] for t in ticks) > 0
 
 
 def test_phases_are_the_flight_records_own():
