@@ -42,6 +42,7 @@ import numpy as np
 
 from slurm_bridge_tpu_torch.admission.residual import ResidualView
 from slurm_bridge_tpu_torch.obs.metrics import REGISTRY, Histogram
+from slurm_bridge_tpu_torch.obs.tracing import TRACER
 from slurm_bridge_tpu_torch.policy.classes import (
     DEFAULT_CLASSES,
     ClassTable,
@@ -185,9 +186,13 @@ class FastPathAdmitter:
         work as ``(demand, class_rank)`` pairs; only multi-shard gangs
         feasible NOW are protected — exactly backfill's contract (a gang
         already infeasible cannot be delayed by a fast-path take).
-        Serialized against concurrent arrivals via :attr:`lock`."""
-        with self.lock:
+        Serialized against concurrent arrivals via :attr:`lock`. The span
+        ``admission.window`` counts the ``protected`` gangs and the
+        in-flight ``deductions`` carried over into the new window."""
+        with TRACER.span("admission.window") as span, self.lock:
             self._begin_window_locked(snapshot, free_after, backlog, plan)
+            span.count("protected", len(self.protected))
+            span.count("deductions", len(self.deductions))
 
     def _begin_window_locked(self, snapshot, free_after, backlog, plan) -> None:
         self._inventory_ok = False

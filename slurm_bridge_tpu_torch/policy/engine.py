@@ -47,6 +47,7 @@ from slurm_bridge_tpu_torch.policy.classes import (
     PriorityClass,
 )
 from slurm_bridge_tpu_torch.policy.fairshare import FairShare, dominant_share
+from slurm_bridge_tpu_torch.obs.tracing import TRACER
 
 __all__ = [
     "CLASS_LABEL",
@@ -175,6 +176,20 @@ class PlacementPolicy:
         return cls, tenant, share, prio
 
     def prepare(
+        self, pending: list, incumbents: list
+    ) -> tuple[list, list, list[float]]:
+        """:meth:`_prepare` under the span ``policy.prepare``, which counts
+        the ``pending`` jobs and those ``deferred``: ordered behind a job
+        of a higher class."""
+        with TRACER.span("policy.prepare") as span:
+            out = self._prepare(pending, incumbents)
+            ranks = [rank for _tenant, _share, rank in self._tick_jobs]
+            top = max(ranks, default=0)
+            span.count("pending", len(ranks))
+            span.count("deferred", len(ranks) - ranks.count(top))
+        return out
+
+    def _prepare(
         self, pending: list, incumbents: list
     ) -> tuple[list, list, list[float]]:
         """The tick's admission order, preemption pool, and effective
@@ -355,6 +370,19 @@ class PlacementPolicy:
     # ---- backfill ----
 
     def backfill(
+        self, snapshot, batch, placement, n_pending: int, *, rank_of=None
+    ) -> list[tuple[int, int]]:
+        """:meth:`_backfill` under the span ``policy.backfill``, which counts
+        its ``candidates`` and its ``takes`` (the shard rows it placed)."""
+        with TRACER.span("policy.backfill") as span:
+            out = self._backfill(
+                snapshot, batch, placement, n_pending, rank_of=rank_of
+            )
+            span.count("candidates", self.backfill_candidates_last)
+            span.count("takes", len(out))
+        return out
+
+    def _backfill(
         self, snapshot, batch, placement, n_pending: int, *, rank_of=None
     ) -> list[tuple[int, int]]:
         """Second-pass hole filling after the main solve.

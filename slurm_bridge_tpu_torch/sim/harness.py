@@ -122,6 +122,12 @@ _tick_seconds = REGISTRY.histogram(
 #: the headline number silently excluded and the flight record could
 #: not reconcile (phase_sum 36.4 s vs tick span 63.0 s).
 PHASES = ("arrive", "store", "encode", "solve", "bind", "mirror", "other")
+#: counters of the arrival-time admission span ``sim.arrive.admit``: the
+#: eligible attempts, the fast binds and the misses by reason
+ADMIT_COUNTS = (
+    "attempts", "binds", "miss_no_fit", "miss_guard", "miss_not_ready",
+    "miss_no_window", "miss_conflict", "miss_unknown_partition",
+)
 
 
 @dataclass(frozen=True)
@@ -495,6 +501,10 @@ class SimHarness:
         #: into the bound accounting + capacity invariants (they are not
         #: in pending_before, so the batch diff cannot see them)
         self._fast_bound_tick: list[str] = []
+        #: the tick's arrival-time admission: its span, and the admit walls
+        #: (ms) of the eligible fast binds after the latency warm-up
+        self._admit_span = None
+        self._admit_walls: list[float] = []
         self._tick_phases: list[dict[str, float]] = []
         #: per-tick pressure ledgers (ISSUE 15): (tick, ledger) for every
         #: solve tick that attributed reasons — what the flight record
@@ -1014,30 +1024,40 @@ class SimHarness:
             has_sizecar = self._stamp_durations(created)
             sspan.count("pods", len(has_sizecar))
         if admitter is not None:
-            for a in created:
-                if a.name not in has_sizecar:
-                    continue
-                pod_name = f"{a.name}-sizecar"
-                # the streaming fast path runs AT arrival (event-driven):
-                # eligible interactive work binds here, in wall-clock
-                # milliseconds, without waiting for the batch tick
-                t0 = time.perf_counter()
-                res = self.scheduler.admit(pod_name)
-                admit_ms = (time.perf_counter() - t0) * 1e3
-                if res.eligible and tick >= warmup:
-                    # the latency axis starts after the cold-start
-                    # warmup: no window exists before the first solve
-                    # and no virtual node is ready before the first
-                    # mirror — steady-state latency is the SLO
-                    self.quality.note_interactive(a.name)
+            # one span over the tick's admissions: each eligible attempt's
+            # outcome rides it as a counter (ADMIT_COUNTS)
+            with TRACER.span("sim.arrive.admit") as admit_span:
+                self._admit_span = admit_span
+                for a in created:
+                    if a.name not in has_sizecar:
+                        continue
+                    pod_name = f"{a.name}-sizecar"
+                    # the streaming fast path runs AT arrival (event-driven):
+                    # eligible interactive work binds here, in wall-clock
+                    # milliseconds, without waiting for the batch tick
+                    t0 = time.perf_counter()
+                    res = self.scheduler.admit(pod_name)
+                    admit_ms = (time.perf_counter() - t0) * 1e3
+                    if res.eligible:
+                        admit_span.count("attempts")
+                        admit_span.count(
+                            "binds" if res.bound else f"miss_{res.reason}"
+                        )
+                    if res.eligible and tick >= warmup:
+                        # the latency axis starts after the cold-start
+                        # warmup: no window exists before the first solve
+                        # and no virtual node is ready before the first
+                        # mirror — steady-state latency is the SLO
+                        self.quality.note_interactive(a.name)
+                        if res.bound:
+                            self.quality.note_fastpath_bind(a.name, admit_ms)
+                            self._admit_walls.append(admit_ms)
                     if res.bound:
-                        self.quality.note_fastpath_bind(a.name, admit_ms)
-                if res.bound:
-                    self._fast_bound_tick.append(pod_name)
-                    self.quality.note_bound(a.name, tick)
-                    self._note(
-                        tick, "fastbind", pod_name, ",".join(res.hint)
-                    )
+                        self._fast_bound_tick.append(pod_name)
+                        self.quality.note_bound(a.name, tick)
+                        self._note(
+                            tick, "fastbind", pod_name, ",".join(res.hint)
+                        )
         return len(arrivals)
 
     def _stamp_durations(self, created: list) -> set[str]:
@@ -1325,6 +1345,8 @@ class SimHarness:
         # the phase clock is the spans' own: arrive's span, and the spans
         # the scheduler tick and the mirror close on this thread, tallied
         self._fast_bound_tick = []
+        self._admit_span = None
+        self._admit_walls = []
         with TRACER.span("sim.arrive") as arrive_span:
             n_arrived = self._arrive(tick) if arrivals else 0
             arrive_span.count("arrivals", n_arrived)
@@ -1387,6 +1409,22 @@ class SimHarness:
         )
         phases["mirror.sweep"] = mirror.get("operator.sweep", 0.0)
         phases["mirror.classify"] = mirror.get("vnode.classify", 0.0)
+        # the arrival-time admission, a part of "arrive": its span, its
+        # counters, and the tick's published admit walls (ms, the eligible
+        # fast binds after the latency warm-up, one list); the policy's
+        # class order (in "prepare"), its backfill (in "other") and the
+        # fast path's window install (in "bind")
+        admit = self._admit_span
+        counts = admit.counters if admit is not None else {}
+        phases["arrive.admit"] = (
+            admit.duration * 1e3 if admit is not None else 0.0
+        )
+        for key in ADMIT_COUNTS:
+            phases[f"arrive.admit.{key}"] = counts.get(key, 0.0)
+        phases["arrive.admit.walls"] = self._admit_walls
+        phases["policy.prepare"] = sched.get("policy.prepare", 0.0)
+        phases["policy.backfill"] = sched.get("policy.backfill", 0.0)
+        phases["admission.window"] = sched.get("admission.window", 0.0)
 
         with TRACER.span("sim.verify"):
             self.cluster.step()

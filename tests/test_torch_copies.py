@@ -229,10 +229,82 @@ ALLOWED = {
     ],
     "policy/classes.py": [],
     "policy/fairshare.py": [],
-    "policy/engine.py": [],
+    # the spans the benchmark's policy metrics read: ``policy.prepare``
+    # (counters pending, deferred) and ``policy.backfill`` (candidates,
+    # takes), each a thin wrapper over the unchanged pass
+    "policy/engine.py": [
+        (
+            'from slurm_bridge_tpu_torch.policy.fairshare import FairShare, dominant_share\n'
+            '\n',
+            'from slurm_bridge_tpu_torch.policy.fairshare import FairShare, dominant_share\n'
+            'from slurm_bridge_tpu_torch.obs.tracing import TRACER\n'
+            '\n',
+        ),
+        (
+            '    def prepare(\n'
+            '        self, pending: list, incumbents: list\n',
+            '    def prepare(\n'
+            '        self, pending: list, incumbents: list\n'
+            '    ) -> tuple[list, list, list[float]]:\n'
+            '        """:meth:`_prepare` under the span ``policy.prepare``, which counts\n'
+            '        the ``pending`` jobs and those ``deferred``: ordered behind a job\n'
+            '        of a higher class."""\n'
+            '        with TRACER.span("policy.prepare") as span:\n'
+            '            out = self._prepare(pending, incumbents)\n'
+            '            ranks = [rank for _tenant, _share, rank in self._tick_jobs]\n'
+            '            top = max(ranks, default=0)\n'
+            '            span.count("pending", len(ranks))\n'
+            '            span.count("deferred", len(ranks) - ranks.count(top))\n'
+            '        return out\n'
+            '\n'
+            '    def _prepare(\n'
+            '        self, pending: list, incumbents: list\n',
+        ),
+        (
+            '    ) -> list[tuple[int, int]]:\n'
+            '        """Second-pass hole filling after the main solve.\n',
+            '    ) -> list[tuple[int, int]]:\n'
+            '        """:meth:`_backfill` under the span ``policy.backfill``, which counts\n'
+            '        its ``candidates`` and its ``takes`` (the shard rows it placed)."""\n'
+            '        with TRACER.span("policy.backfill") as span:\n'
+            '            out = self._backfill(\n'
+            '                snapshot, batch, placement, n_pending, rank_of=rank_of\n'
+            '            )\n'
+            '            span.count("candidates", self.backfill_candidates_last)\n'
+            '            span.count("takes", len(out))\n'
+            '        return out\n'
+            '\n'
+            '    def _backfill(\n'
+            '        self, snapshot, batch, placement, n_pending: int, *, rank_of=None\n'
+            '    ) -> list[tuple[int, int]]:\n'
+            '        """Second-pass hole filling after the main solve.\n',
+        ),
+    ],
     "admission/__init__.py": [],
     "admission/residual.py": [],
-    "admission/fastpath.py": [],
+    # the window install's span ``admission.window`` (counters protected,
+    # deductions), which the benchmark's admission metrics read
+    "admission/fastpath.py": [
+        (
+            'from slurm_bridge_tpu_torch.obs.metrics import REGISTRY, Histogram\n'
+            'from slurm_bridge_tpu_torch.policy.classes import (\n',
+            'from slurm_bridge_tpu_torch.obs.metrics import REGISTRY, Histogram\n'
+            'from slurm_bridge_tpu_torch.obs.tracing import TRACER\n'
+            'from slurm_bridge_tpu_torch.policy.classes import (\n',
+        ),
+        (
+            '        Serialized against concurrent arrivals via :attr:`lock`."""\n'
+            '        with self.lock:\n'
+            '            self._begin_window_locked(snapshot, free_after, backlog, plan)\n',
+            '        Serialized against concurrent arrivals via :attr:`lock`. The span\n'
+            '        ``admission.window`` counts the ``protected`` gangs and the\n'
+            '        in-flight ``deductions`` carried over into the new window."""\n'
+            '        with TRACER.span("admission.window") as span, self.lock:\n'
+            '            self._begin_window_locked(snapshot, free_after, backlog, plan)\n'
+            '            span.count("protected", len(self.protected))\n'
+            '            span.count("deductions", len(self.deductions))\n',
+        ),
+    ],
     "bridge/scheduler.py": [
         ("and solves the assignment with the JAX auction kernel (or the greedy packer",
          "and solves the assignment with the device auction, whose score/choose step\n"
@@ -1334,6 +1406,123 @@ ALLOWED = {
             '\n',
             '        phases["mirror.sweep"] = mirror.get("operator.sweep", 0.0)\n'
             '        phases["mirror.classify"] = mirror.get("vnode.classify", 0.0)\n'
+            '\n',
+        ),
+        # the arrival-time admission as one span, ``sim.arrive.admit``, with
+        # its attempts, binds and misses by reason as counters; the tick's
+        # admit walls published (the quality tracker's private samples);
+        # these and the policy's and the window's spans as parts of the
+        # phase dict beside PHASES, outside its sum
+        (
+            'PHASES = ("arrive", "store", "encode", "solve", "bind", "mirror", "other")\n'
+            '\n',
+            'PHASES = ("arrive", "store", "encode", "solve", "bind", "mirror", "other")\n'
+            '#: counters of the arrival-time admission span ``sim.arrive.admit``: the\n'
+            '#: eligible attempts, the fast binds and the misses by reason\n'
+            'ADMIT_COUNTS = (\n'
+            '    "attempts", "binds", "miss_no_fit", "miss_guard", "miss_not_ready",\n'
+            '    "miss_no_window", "miss_conflict", "miss_unknown_partition",\n'
+            ')\n'
+            '\n',
+        ),
+        (
+            '        self._fast_bound_tick: list[str] = []\n'
+            '        self._tick_phases: list[dict[str, float]] = []\n',
+            '        self._fast_bound_tick: list[str] = []\n'
+            "        #: the tick's arrival-time admission: its span, and the admit walls\n"
+            '        #: (ms) of the eligible fast binds after the latency warm-up\n'
+            '        self._admit_span = None\n'
+            '        self._admit_walls: list[float] = []\n'
+            '        self._tick_phases: list[dict[str, float]] = []\n',
+        ),
+        (
+            '            for a in created:\n'
+            '                if a.name not in has_sizecar:\n'
+            '                    continue\n'
+            '                pod_name = f"{a.name}-sizecar"\n'
+            '                # the streaming fast path runs AT arrival (event-driven):\n'
+            '                # eligible interactive work binds here, in wall-clock\n'
+            '                # milliseconds, without waiting for the batch tick\n'
+            '                t0 = time.perf_counter()\n'
+            '                res = self.scheduler.admit(pod_name)\n'
+            '                admit_ms = (time.perf_counter() - t0) * 1e3\n'
+            '                if res.eligible and tick >= warmup:\n'
+            '                    # the latency axis starts after the cold-start\n'
+            '                    # warmup: no window exists before the first solve\n'
+            '                    # and no virtual node is ready before the first\n'
+            '                    # mirror — steady-state latency is the SLO\n'
+            '                    self.quality.note_interactive(a.name)\n'
+            '                    if res.bound:\n'
+            '                        self.quality.note_fastpath_bind(a.name, admit_ms)\n'
+            '                if res.bound:\n'
+            '                    self._fast_bound_tick.append(pod_name)\n'
+            '                    self.quality.note_bound(a.name, tick)\n'
+            '                    self._note(\n'
+            '                        tick, "fastbind", pod_name, ",".join(res.hint)\n'
+            '                    )\n',
+            "            # one span over the tick's admissions: each eligible attempt's\n"
+            '            # outcome rides it as a counter (ADMIT_COUNTS)\n'
+            '            with TRACER.span("sim.arrive.admit") as admit_span:\n'
+            '                self._admit_span = admit_span\n'
+            '                for a in created:\n'
+            '                    if a.name not in has_sizecar:\n'
+            '                        continue\n'
+            '                    pod_name = f"{a.name}-sizecar"\n'
+            '                    # the streaming fast path runs AT arrival (event-driven):\n'
+            '                    # eligible interactive work binds here, in wall-clock\n'
+            '                    # milliseconds, without waiting for the batch tick\n'
+            '                    t0 = time.perf_counter()\n'
+            '                    res = self.scheduler.admit(pod_name)\n'
+            '                    admit_ms = (time.perf_counter() - t0) * 1e3\n'
+            '                    if res.eligible:\n'
+            '                        admit_span.count("attempts")\n'
+            '                        admit_span.count(\n'
+            '                            "binds" if res.bound else f"miss_{res.reason}"\n'
+            '                        )\n'
+            '                    if res.eligible and tick >= warmup:\n'
+            '                        # the latency axis starts after the cold-start\n'
+            '                        # warmup: no window exists before the first solve\n'
+            '                        # and no virtual node is ready before the first\n'
+            '                        # mirror — steady-state latency is the SLO\n'
+            '                        self.quality.note_interactive(a.name)\n'
+            '                        if res.bound:\n'
+            '                            self.quality.note_fastpath_bind(a.name, admit_ms)\n'
+            '                            self._admit_walls.append(admit_ms)\n'
+            '                    if res.bound:\n'
+            '                        self._fast_bound_tick.append(pod_name)\n'
+            '                        self.quality.note_bound(a.name, tick)\n'
+            '                        self._note(\n'
+            '                            tick, "fastbind", pod_name, ",".join(res.hint)\n'
+            '                        )\n',
+        ),
+        (
+            '        self._fast_bound_tick = []\n'
+            '        with TRACER.span("sim.arrive") as arrive_span:\n',
+            '        self._fast_bound_tick = []\n'
+            '        self._admit_span = None\n'
+            '        self._admit_walls = []\n'
+            '        with TRACER.span("sim.arrive") as arrive_span:\n',
+        ),
+        (
+            '        phases["mirror.classify"] = mirror.get("vnode.classify", 0.0)\n'
+            '\n',
+            '        phases["mirror.classify"] = mirror.get("vnode.classify", 0.0)\n'
+            '        # the arrival-time admission, a part of "arrive": its span, its\n'
+            "        # counters, and the tick's published admit walls (ms, the eligible\n"
+            "        # fast binds after the latency warm-up, one list); the policy's\n"
+            '        # class order (in "prepare"), its backfill (in "other") and the\n'
+            '        # fast path\'s window install (in "bind")\n'
+            '        admit = self._admit_span\n'
+            '        counts = admit.counters if admit is not None else {}\n'
+            '        phases["arrive.admit"] = (\n'
+            '            admit.duration * 1e3 if admit is not None else 0.0\n'
+            '        )\n'
+            '        for key in ADMIT_COUNTS:\n'
+            '            phases[f"arrive.admit.{key}"] = counts.get(key, 0.0)\n'
+            '        phases["arrive.admit.walls"] = self._admit_walls\n'
+            '        phases["policy.prepare"] = sched.get("policy.prepare", 0.0)\n'
+            '        phases["policy.backfill"] = sched.get("policy.backfill", 0.0)\n'
+            '        phases["admission.window"] = sched.get("admission.window", 0.0)\n'
             '\n',
         ),
     ],

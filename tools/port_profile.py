@@ -177,7 +177,8 @@ def sim_work(name: str, scale: float):
         return {"sim": name, "scale": scale, "digest": d["digest"],
                 "bound_total": d["bound_total"],
                 "recovery_ms": out["result"].timing["recovery_ms"],
-                "tick_phase_ms": [{k: round(v, 1) for k, v in ph.items()}
+                "tick_phase_ms": [{k: round(v, 1) for k, v in ph.items()
+                                   if isinstance(v, float)}
                                   for ph in h._tick_phases]}
 
     return lambda: out.update(result=h.run()), extra
